@@ -6,8 +6,8 @@
 Renders the Cornell box while translating the tall box through three
 poses. The tall box is split onto its own scene node, so each
 `set_node_transform` + `update_scene` retransforms JUST that node's
-triangles ON DEVICE (delta matrix, cluster AABB refit, DMA block repack
-— ops/animate.py) with no host re-upload and no jit retrace: the role
+triangles ON DEVICE (delta matrix, cluster AABB refit, packed-block
+repack — ops/animate.py) with no host re-upload and no jit retrace: the role
 of the reference's per-mesh object uniforms rewritten every frame
 (/root/reference/src/rz_renderer.rs:38-53, 690-716) plus its implicit
 BLAS rebuild. Accumulation restarts at every pose

@@ -4,9 +4,9 @@
     python examples/render_gltf.py [scene.glb] [frames] [out_prefix]
 
 Defaults to the bundled assets/atrium.glb (34k triangles, embedded PNG
-textures, quad area lights). Large scenes route through the binned-SAH
-cluster layout + the coherence-sorted matrix traversal automatically
-(integrator "auto" backend); writes {out}_color.pfm / _albedo.pfm /
+textures, quad area lights). Visibility takes the integrator's "auto"
+backend (the Pallas kernel on a GPU, the XLA brute force on the CPU);
+writes {out}_color.pfm / _albedo.pfm /
 _normal.pfm like the reference's save_images.
 """
 

@@ -8,7 +8,7 @@ shader path, gpu_uploader.rs:818-840 — registered in code, not glTF).
 Three spheres with different material responses (diffuse, Disney
 metal, emissive) shade through the full material system and block
 shadow rays; a fused multi-frame dispatch renders the progressive
-window in few XLA programs (round-5 `frames_per_dispatch`).
+window in few XLA programs (`frames_per_dispatch`).
 """
 
 import os

@@ -1,19 +1,20 @@
-"""hala_tpu — a TPU-native rendering framework.
+"""hala_tpu — a rendering framework in JAX.
 
 A ground-up re-design of the capabilities of `hala-renderer`
-(reference: /root/reference, a Rust/Vulkan renderer library) for TPU
-hardware via JAX/XLA/Pallas:
+(the reference: a Rust/Vulkan renderer library) in
+JAX/XLA/Pallas, running on NVIDIA GPUs:
 
 * the hardware ray-tracing path tracer (reference src/rt_renderer.rs)
-  becomes a wavefront path tracer over SoA triangle buffers with an
-  on-device LBVH (replacing TLAS/BLAS acceleration structures),
+  becomes a batched path tracer over SoA triangle buffers, with
+  brute-force visibility in a Pallas kernel (replacing TLAS/BLAS
+  acceleration structures),
 * the rasterization renderer (reference src/rz_renderer.rs) becomes a
   tile-binned software rasterizer with forward and deferred paths,
 * the Vulkan device layer (external `hala-gfx` crate) is replaced
   wholesale by the JAX device runtime: buffers are jnp arrays,
   pipelines are jitted functions, the pipeline cache is the XLA
   compilation cache, and multi-device scaling is `shard_map` over a
-  `jax.sharding.Mesh` with ICI collectives.
+  `jax.sharding.Mesh` with collectives.
 
 Public surface mirrors the reference prelude (reference src/prelude.rs).
 """

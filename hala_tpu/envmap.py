@@ -60,10 +60,8 @@ class EnvMap:
     # Derived 2x2-neighborhood table (H, W, 16): for cell (y, x) the
     # rgb+luminance of [c(y,x) | c(y,x+1 wrap) | c(y+1 clamp,x) |
     # c(y+1,x+1)]. One 16-wide row take then serves an ENTIRE bilinear
-    # fetch AND the nearest-texel pdf — TPU element gathers cost ~9 ns
-    # PER ROW nearly independent of row width, and the env path's ~9
-    # per-bounce gathers were the whole envmap-config gap (round-3
-    # ledger). None for large maps (memory x16).
+    # fetch AND the nearest-texel pdf instead of ~9 separate per-bounce
+    # gathers. None for large maps (memory x16).
     quad: jax.Array | None = None
     # Derived per-texel sample table (H, W, 8): [rgb | luminance |
     # dir0.xyz | sin_theta] where dir0 = uv_to_dir(x/W, y/H, rotation=0)

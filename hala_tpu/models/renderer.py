@@ -8,7 +8,7 @@ Parity: reference src/renderer.rs:
   (renderer.rs:134-207, log at 188-194);
 * `BaseRenderer` — the HalaRendererTrait analog (renderer.rs:210-324):
   commit/update/render/wait_idle plus device-restore. The swapchain
-  acquire/submit/present machinery has no TPU counterpart (SURVEY.md
+  acquire/submit/present machinery has no counterpart here (SURVEY.md
   "explicit non-goals"); its *roles* map to: update() = record+dispatch
   the jitted frame function, render() = block_until_ready + statistics,
   check_and_restore_device() = re-put buffers and re-jit after a device

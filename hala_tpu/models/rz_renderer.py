@@ -18,7 +18,7 @@ HalaRasterizationRenderer):
   ray_tracing=False) (rz_renderer.rs:1936-1954).
 
 The per-material-type pipeline arrays and shader push API map to the
-jitted shading dispatch (materials are data, not pipelines, on TPU);
+jitted shading dispatch (materials are data, not pipelines, here);
 MSAA maps to supersampled rasterization with an average resolve
 (enable_multisample, rz_renderer.rs:1586-1622).
 """
@@ -36,7 +36,6 @@ import numpy as np
 
 from ..error import HalaRendererError
 from ..ops.bsdf import gather_materials
-from ..ops.gathers import take_rows
 from ..ops.raster import clip_to_screen, rasterize, transform_vertices
 from ..ops.sampling import dot, normalize
 from ..ops.texture import sample_texture
@@ -65,7 +64,7 @@ class RasterSettings:
     mesh_shader: bool = False  # meshlet-binned draw path (rz.task/rz.mesh)
     # Transparency layers for the forward path. The reference blends
     # transparent materials SRC_ALPHA/ONE_MINUS_SRC_ALPHA in draw order
-    # (rz_renderer.rs:490); the TPU-native equivalent is K-pass depth
+    # (rz_renderer.rs:490); the equivalent here is K-pass depth
     # peeling — order-INDEPENDENT back-to-front compositing of the K
     # nearest transparent layers over the opaque result. 0 restores the
     # legacy everything-opaque behavior. Active only when the scene has
@@ -129,13 +128,9 @@ def _shade(scene, frag, view_pos):
     w0 = 1.0 - u - v
     # ONE fused row take for EVERY per-fragment attribute: corner
     # normals + uvs + material id (shade-table cols) AND the triangle
-    # geometry v0/e1/e2. A TPU row take costs ~14 ns/ROW regardless of
-    # width while each separate take pays that per-row cost again
-    # (honest-timing microbench, out/probe_logs/r5/gatherhonest.log:
-    # one take 30.6 ms at any width 8-32 vs 116.4 ms for the previous
-    # 1 shade + 3 geo takes at N=2.09M fragments, 1080p atrium_big).
-    # The in-jit concat is a ~24 MB HBM round trip (~0.06 ms) and the
-    # gathered VALUES are unchanged, so shading stays bit-identical.
+    # geometry v0/e1/e2, so the per-row gather cost is paid once
+    # instead of once per table. The gathered VALUES are unchanged, so
+    # shading stays bit-identical.
     table = jnp.concatenate(
         [
             geom.shade_table[:, 0:15],
@@ -146,7 +141,7 @@ def _shade(scene, frag, view_pos):
         ],
         axis=1,
     )
-    rows = take_rows(table, tid)
+    rows = jnp.take(table, tid, axis=0)
     ns = normalize(
         w0[:, None] * rows[:, 0:3]
         + u[:, None] * rows[:, 3:6]
@@ -258,7 +253,7 @@ def _raster_setup(scene, camera_index, settings: RasterSettings,
 
     view = scene.cameras.view_matrix[camera_index]
     proj = scene.cameras.proj_matrix[camera_index]
-    vp = proj @ view
+    vp = jnp.matmul(proj, view, precision=jax.lax.Precision.HIGHEST)
 
     v0 = geom.tri_v0
     v1 = geom.tri_v0 + geom.tri_e1
@@ -281,7 +276,7 @@ def _raster_setup(scene, camera_index, settings: RasterSettings,
         # Indirect work sizing (draw_indirect role,
         # graphics_program.rs:469-643): the primitive count is a
         # DEVICE-computed i32 consumed without any host round trip —
-        # the TPU analog of a VkDrawIndirectCommand buffer read. Shapes
+        # the analog of a VkDrawIndirectCommand buffer read. Shapes
         # stay static; the count masks primitive validity.
         valid = valid & (
             jnp.arange(valid.shape[0], dtype=jnp.int32) < prim_count

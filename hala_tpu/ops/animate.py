@@ -6,8 +6,8 @@ transforms are a per-frame input (/root/reference/src/rz_renderer.rs:
 geometry is baked to world space at upload (SceneUploader), so moving a
 node means applying the DELTA transform (new_world @ inv(cur_world)) to
 that node's triangles on device: no host re-upload, no jit retrace (the
-scene pytree keeps its shapes), and the cluster AABB tables + packed
-DMA blocks are rebuilt from the transformed soup in the same jit.
+scene pytree keeps its shapes), and the cluster AABB tables +
+packed blocks are rebuilt from the transformed soup in the same jit.
 
 The slot layout (and therefore the SAH/Morton cluster partition) is
 NOT rebuilt — exactly the hardware-BVH refit contract: topology stable,
@@ -24,6 +24,9 @@ import jax.numpy as jnp
 
 from .cluster import TRI_CHUNK, refit_clusters, subchunk_aabb_row
 
+# float32 products (the GPU default would round operands to TF32)
+_HI = jax.lax.Precision.HIGHEST
+
 
 @jax.jit
 def retransform_geometry(geometry, deltas, normal_deltas):
@@ -37,7 +40,7 @@ def retransform_geometry(geometry, deltas, normal_deltas):
     Returns a new DeviceGeometry with transformed soup, re-derived
     shade-table columns (corner/geometric normals, tangents, uv texel
     density — world area changes under scale), refit cluster AABBs and
-    repacked DMA blocks. Everything else (uvs, materials, slot order,
+    repacked blocks. Everything else (uvs, materials, slot order,
     static metadata) is untouched.
     """
     g = geometry
@@ -45,17 +48,22 @@ def retransform_geometry(geometry, deltas, normal_deltas):
     M = jnp.take(deltas, pid, axis=0)           # (T, 4, 4)
     R = jnp.take(normal_deltas, pid, axis=0)    # (T, 3, 3)
     lin = M[:, :3, :3]
-    v0 = jnp.einsum("tij,tj->ti", lin, g.tri_v0) + M[:, :3, 3]
-    e1 = jnp.einsum("tij,tj->ti", lin, g.tri_e1)
-    e2 = jnp.einsum("tij,tj->ti", lin, g.tri_e2)
+    v0 = (
+        jnp.einsum("tij,tj->ti", lin, g.tri_v0, precision=_HI)
+        + M[:, :3, 3]
+    )
+    e1 = jnp.einsum("tij,tj->ti", lin, g.tri_e1, precision=_HI)
+    e2 = jnp.einsum("tij,tj->ti", lin, g.tri_e2, precision=_HI)
 
     def unit(a, axis=-1):
         return a / jnp.maximum(
             jnp.linalg.norm(a, axis=axis, keepdims=True), 1e-30
         )
 
-    normals = unit(jnp.einsum("tij,tcj->tci", R, g.normals))
-    tangents = jnp.einsum("tij,tcj->tci", lin, g.tangents)
+    normals = unit(
+        jnp.einsum("tij,tcj->tci", R, g.normals, precision=_HI)
+    )
+    tangents = jnp.einsum("tij,tcj->tci", lin, g.tangents, precision=_HI)
     ng = unit(jnp.cross(e1, e2))
 
     shade = g.shade_table

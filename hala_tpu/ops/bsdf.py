@@ -75,13 +75,10 @@ def gather_materials(materials, mat_idx: jnp.ndarray) -> MatParams:
     """Gather material parameters for per-ray material indices.
 
     Uses the packed (M, 32) table when present — ONE row gather per ray
-    instead of 17 scalar gathers (TPU gathers are element-wise; the
-    scalar-gather version dominated the frame profile)."""
+    instead of 17 scalar gathers."""
     idx = jnp.maximum(mat_idx, 0)
     if materials.packed is not None:
-        from .gathers import take_rows
-
-        rows = take_rows(materials.packed, idx)  # (N, 32)
+        rows = jnp.take(materials.packed, idx, axis=0)  # (N, 32)
         return MatParams(
             base_color=rows[:, 0:3],
             opacity=rows[:, 3],

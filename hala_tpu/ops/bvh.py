@@ -1,13 +1,12 @@
-"""BVH build + TPU-friendly stackless traversal.
+"""BVH build + stackless traversal in plain XLA.
 
 Replaces the reference's hardware acceleration structures
 (gpu_uploader.rs:774-967: BLAS per primitive + TLAS over instances). The
 device representation is a flat SoA node table in DFS pre-order with
 *skip links* (ropes): on an AABB hit the ray descends to `node+1`, on a
 miss it jumps to `skip[node]`. That makes traversal a single
-`lax.while_loop` with one node pointer per ray — no per-ray stack, which
-is the right shape for an 8x128-lane SIMD machine (SURVEY.md section 7
-hard-part #3).
+`lax.while_loop` with one node pointer per ray — no per-ray stack
+(SURVEY.md section 7 hard-part #3).
 
 Round-1 build is a host-side median-split builder (numpy, iterative);
 the on-device Morton/LBVH build (BASELINE config[4]) replaces the build
@@ -228,5 +227,5 @@ def intersect_bvh(bvh: BVH, geometry, o, d, t_max=None) -> Hit:
 
 def occluded_bvh(bvh: BVH, geometry, o, d, t_far) -> jnp.ndarray:
     """Any-hit query: True where a triangle lies in (eps, t_far)."""
-    hit = intersect_bvh(bvh, geometry, o, d, t_max=t_far * (1.0 - 1e-4))
+    hit = intersect_bvh(bvh, geometry, o, d, t_max=t_far)
     return hit.tri >= 0

@@ -1,54 +1,30 @@
-"""Cluster-streaming intersector for large scenes.
+"""Cluster tables of the uploaded triangle soup (plain XLA).
 
-The TPU-native replacement for per-ray BVH traversal (SURVEY.md
-section 7 hard-part #1: per-lane tree walks don't map to an 8x128-lane
-machine). Triangles are Morton-ordered at upload so every TRI_PAD chunk
-is a spatially coherent *cluster* with a tight AABB; the kernel walks a
-flat cluster list in lockstep:
-
-for each cluster: slab-test its AABB against the whole 1024-ray tile
-(~20 VPU ops); only if ANY lane hits, DMA the cluster's packed geometry
-block from HBM into VMEM and run the 128-triangle Moller-Trumbore loop.
-The AABB test is the "traversal"; the predicated DMA+loop is the "leaf".
-No gathers, no per-ray stacks, no candidate-list overflow hazard.
-
-Efficiency is governed by how many clusters a ray *block* touches, so
-callers keep blocks coherent: the integrator renders pixels in 32x32
-swizzled blocks and the wavefront sorter (ops/compaction.py) reorders
-bounce rays by direction octant + origin cell.
+Triangles are ordered at upload so every TRI_CHUNK block of slots is a
+spatially coherent *cluster* (ops/sahbuild.py, or Morton order for
+small meshes). The tables here describe those clusters: per-cluster
+AABBs, the packed (C, 16, TRI_CHUNK) geometry blocks and their 16-tri
+sub-chunk AABB rows. Geometry sharding (parallel/scene_shard.py) splits
+the scene at cluster-block boundaries, and animation (ops/animate.py)
+refits the tables after a retransform; this module builds and refits
+them on the device.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
+from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .intersect import Hit, T_MAX, out_struct, varying_like
 
 LANES = 128
-BLOCK_SUBLANES = 8
-RAY_BLOCK = BLOCK_SUBLANES * LANES  # 1024 rays per stream block
-TRI_CHUNK = 128                     # == scene/gpu TRI_PAD (DMA block size)
-# AABB/culling granularity. Measured on the sponza_like frame: 32 makes
-# the 4x extra slab tests cost more than the finer leaves save (1.49 vs
-# 1.60 Mrays/s), so culling stays at DMA-block granularity.
+TRI_CHUNK = 128                     # == scene/gpu TRI_PAD (block size)
+# AABB granularity of the cluster tables (triangles per AABB).
 SUB_CLUSTER = 128
-SUBS_PER_CHUNK = TRI_CHUNK // SUB_CLUSTER
-# In-chunk pretest granularity: each DMA chunk carries 8 x 16-triangle
-# sub-AABBs in tri_packed row 9 (lanes 0-47, [min.xyz|max.xyz] x 8) so
-# the matrix kernel's Moller-Trumbore loop can skip 16-tri spans no
-# live lane's ray enters — unlike the 2019-style SUB_CLUSTER=32 culling
-# experiment above, this costs slab tests only where a chunk is already
-# being visited, not in the global key matrix.
+# In-chunk granularity: each block carries 8 x 16-triangle sub-AABBs in
+# tri_packed row 9 (lanes 0-47, [min.xyz|max.xyz] x 8).
 PRETEST_TRIS = 16
 PRETEST_PER_CHUNK = TRI_CHUNK // PRETEST_TRIS
-_EPS = 1.0e-7
-_T_MIN = 1.0e-4
 
 
 def subchunk_aabb_row(t_min, t_max):
@@ -57,8 +33,7 @@ def subchunk_aabb_row(t_min, t_max):
 
     Padding slots must carry (+inf, -inf) bounds so they vanish from
     mixed sub-chunks; fully empty sub-chunks collapse to a far-away
-    POINT box (min == max == 3e37), which a slab test only passes for a
-    ray through that exact point — the same sentinel convention as the
+    POINT box (min == max == 3e37), the same sentinel convention as the
     cluster AABB tables."""
     t = t_min.shape[0]
     n_chunks = t // TRI_CHUNK
@@ -75,250 +50,13 @@ def subchunk_aabb_row(t_min, t_max):
     )
 
 
-class CullResult(NamedTuple):
-    """Diagnostic per-block candidate statistics (cull_clusters)."""
-
-    ids: jnp.ndarray
-    counts: jnp.ndarray
-    overflow: jnp.ndarray
-
-
-def cull_clusters(
-    o, d, t_max, cluster_min, cluster_max, k_max: int
-) -> CullResult:
-    """Reference (jnp) block-level culling, kept as the test oracle for
-    the in-kernel AABB test and as a block-coherence diagnostic."""
-    n = o.shape[0]
-    nb = n // RAY_BLOCK
-    safe_d = jnp.where(jnp.abs(d) < 1e-12, jnp.float32(1e-12), d)
-    inv_d = 1.0 / safe_d
-
-    o_b = o.reshape(nb, RAY_BLOCK, 3)
-    inv_b = inv_d.reshape(nb, RAY_BLOCK, 3)
-    tm_b = t_max.reshape(nb, RAY_BLOCK)
-
-    def per_block(args):
-        ob, invb, tmb = args
-        t0 = (cluster_min[None, :, :] - ob[:, None, :]) * invb[:, None, :]
-        t1 = (cluster_max[None, :, :] - ob[:, None, :]) * invb[:, None, :]
-        tn = jnp.max(jnp.minimum(t0, t1), axis=-1)
-        tf = jnp.min(jnp.maximum(t0, t1), axis=-1)
-        hit = (tn <= tf) & (tf > 0.0) & (tn < tmb[:, None])
-        m = jnp.any(hit, axis=0)
-        count = jnp.sum(m.astype(jnp.int32))
-        ids = jnp.argsort(~m, stable=True).astype(jnp.int32)[:k_max]
-        fill = ids[jnp.maximum(jnp.minimum(count, k_max) - 1, 0)]
-        pos = jnp.arange(k_max, dtype=jnp.int32)
-        ids = jnp.where(pos < count, ids, fill)
-        return ids, count
-
-    ids, counts = jax.lax.map(per_block, (o_b, inv_b, tm_b))
-    overflow = jnp.mean((counts > k_max).astype(jnp.float32))
-    return CullResult(
-        ids=ids, counts=jnp.minimum(counts, k_max), overflow=overflow
-    )
-
-
-def _make_stream_kernel(num_clusters: int):
-    return functools.partial(_stream_kernel_body, num_clusters)
-
-
-def _stream_kernel_body(
-    num_clusters,
-    cmin_ref,     # VMEM (C, 3) cluster AABB mins
-    cmax_ref,     # VMEM (C, 3)
-    ox, oy, oz, dx, dy, dz, tmax,   # VMEM (BLOCK_SUBLANES, LANES)
-    tri_hbm,      # ANY/HBM (C, TRI_CHUNK, 12)
-    t_out, tri_out, u_out, v_out,
-    tri_smem,     # scratch SMEM (16, TRI_CHUNK) cluster block
-    last_ref,     # scratch SMEM (1,) i32 — id of the resident DMA block
-    sem,          # DMA semaphore
-):
-    last_ref[0] = -1
-    t_out[:] = tmax[:]
-    tri_out[:] = jnp.full(t_out.shape, -1, jnp.int32)
-    u_out[:] = jnp.zeros(t_out.shape, jnp.float32)
-    v_out[:] = jnp.zeros(t_out.shape, jnp.float32)
-
-    rox, roy, roz = ox[:], oy[:], oz[:]
-    rdx, rdy, rdz = dx[:], dy[:], dz[:]
-    big = jnp.float32(1e12)
-    invx = jnp.where(jnp.abs(rdx) < 1e-12, big, 1.0 / rdx)
-    invy = jnp.where(jnp.abs(rdy) < 1e-12, big, 1.0 / rdy)
-    invz = jnp.where(jnp.abs(rdz) < 1e-12, big, 1.0 / rdz)
-
-    def cluster_body(c, _):
-        # Lockstep slab test of cluster c against the whole ray tile.
-        t0x = (cmin_ref[c, 0] - rox) * invx
-        t1x = (cmax_ref[c, 0] - rox) * invx
-        t0y = (cmin_ref[c, 1] - roy) * invy
-        t1y = (cmax_ref[c, 1] - roy) * invy
-        t0z = (cmin_ref[c, 2] - roz) * invz
-        t1z = (cmax_ref[c, 2] - roz) * invz
-        tn = jnp.maximum(
-            jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-            jnp.minimum(t0z, t1z),
-        )
-        tf = jnp.minimum(
-            jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-            jnp.maximum(t0z, t1z),
-        )
-        any_hit = jnp.any((tn <= tf) & (tf > 0.0) & (tn < t_out[:]))
-
-        @pl.when(any_hit)
-        def _leaf():
-            # c is a SUB_CLUSTER id; its geometry lives in DMA block p.
-            p = c // SUBS_PER_CHUNK
-            off = (c % SUBS_PER_CHUNK) * SUB_CLUSTER
-
-            @pl.when(last_ref[0] != p)
-            def _fetch():
-                cp = pltpu.make_async_copy(tri_hbm.at[p], tri_smem, sem)
-                cp.start()
-                cp.wait()
-                last_ref[0] = p
-
-            base = p * TRI_CHUNK + off
-
-            def tri_body(k, _):
-                t = off + k
-                av0x = tri_smem[0, t]
-                av0y = tri_smem[1, t]
-                av0z = tri_smem[2, t]
-                ae1x = tri_smem[3, t]
-                ae1y = tri_smem[4, t]
-                ae1z = tri_smem[5, t]
-                ae2x = tri_smem[6, t]
-                ae2y = tri_smem[7, t]
-                ae2z = tri_smem[8, t]
-
-                px = rdy * ae2z - rdz * ae2y
-                py = rdz * ae2x - rdx * ae2z
-                pz = rdx * ae2y - rdy * ae2x
-                det = px * ae1x + py * ae1y + pz * ae1z
-                inv_det = jnp.where(jnp.abs(det) > _EPS, 1.0 / det, 0.0)
-                tx = rox - av0x
-                ty = roy - av0y
-                tz = roz - av0z
-                u = (tx * px + ty * py + tz * pz) * inv_det
-                qx = ty * ae1z - tz * ae1y
-                qy = tz * ae1x - tx * ae1z
-                qz = tx * ae1y - ty * ae1x
-                v = (rdx * qx + rdy * qy + rdz * qz) * inv_det
-                tt = (ae2x * qx + ae2y * qy + ae2z * qz) * inv_det
-
-                t_cur = t_out[:]
-                ok = (
-                    (jnp.abs(det) > _EPS)
-                    & (u >= 0.0)
-                    & (v >= 0.0)
-                    & (u + v <= 1.0)
-                    & (tt > _T_MIN)
-                    & (tt < t_cur)
-                )
-                t_out[:] = jnp.where(ok, tt, t_cur)
-                tri_out[:] = jnp.where(ok, base + k, tri_out[:])
-                u_out[:] = jnp.where(ok, u, u_out[:])
-                v_out[:] = jnp.where(ok, v, v_out[:])
-                return 0
-
-            jax.lax.fori_loop(0, SUB_CLUSTER, tri_body, 0)
-
-        return 0
-
-    jax.lax.fori_loop(0, num_clusters, cluster_body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def intersect_clustered(
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    geometry,
-    t_max=None,
-    interpret: bool = False,
-) -> Hit:
-    """Closest hit through the fused cull+stream kernel."""
-    n = o.shape[0]
-    n_pad = -(-n // RAY_BLOCK) * RAY_BLOCK
-
-    if t_max is None:
-        tm = varying_like(o[:, 0], 0.0) + T_MAX
-    else:
-        tm = jnp.broadcast_to(t_max, (n,)).astype(jnp.float32)
-    if n_pad != n:
-        o = jnp.pad(o, ((0, n_pad - n), (0, 0)))
-        d = jnp.pad(d, ((0, n_pad - n), (0, 0)), constant_values=1.0)
-        tm = jnp.pad(tm, (0, n_pad - n))
-
-    nb = n_pad // RAY_BLOCK
-    c = geometry.cluster_min.shape[0]  # sub-cluster count
-
-    def comp(a, i):
-        return a[:, i].reshape(n_pad // LANES, LANES)
-
-    rays = [comp(o, 0), comp(o, 1), comp(o, 2),
-            comp(d, 0), comp(d, 1), comp(d, 2),
-            tm.reshape(n_pad // LANES, LANES)]
-
-    # AABBs padded to 128 lanes: a (C, 3) operand hits XLA/Mosaic layout
-    # disagreements at some C (f32[384] chose tiling T(512) vs Mosaic's
-    # T(128)); the canonical lane-padded shape always verifies. Kernel
-    # reads (cmin_ref[c, 0..2], dynamic sublane index) are unchanged.
-    c_rows = c + (-c) % BLOCK_SUBLANES  # full (8,128) tiles
-    cmin_in = jnp.pad(
-        geometry.cluster_min, ((0, c_rows - c), (0, LANES - 3))
-    )
-    cmax_in = jnp.pad(
-        geometry.cluster_max, ((0, c_rows - c), (0, LANES - 3))
-    )
-    aabb_spec = pl.BlockSpec(
-        (c_rows, LANES), lambda i: (0, 0), memory_space=pltpu.VMEM
-    )
-    ray_spec = pl.BlockSpec(
-        (BLOCK_SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    tri_spec = pl.BlockSpec(memory_space=pl.ANY)
-    out_spec = pl.BlockSpec(
-        (BLOCK_SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    shape2 = (n_pad // LANES, LANES)
-    t_best, tri_best, u_best, v_best = pl.pallas_call(
-        _make_stream_kernel(c),
-        grid=(nb,),
-        in_specs=[aabb_spec, aabb_spec] + [ray_spec] * 7 + [tri_spec],
-        out_specs=[out_spec] * 4,
-        out_shape=[
-            out_struct(shape2, jnp.float32, rays[0]),
-            out_struct(shape2, jnp.int32, rays[0]),
-            out_struct(shape2, jnp.float32, rays[0]),
-            out_struct(shape2, jnp.float32, rays[0]),
-        ],
-        scratch_shapes=[
-            pltpu.SMEM((16, TRI_CHUNK), jnp.float32),
-            pltpu.SMEM((1,), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(cmin_in, cmax_in, *rays, geometry.tri_packed)
-
-    return Hit(
-        t=t_best.reshape(-1)[:n],
-        tri=tri_best.reshape(-1)[:n],
-        u=u_best.reshape(-1)[:n],
-        v=v_best.reshape(-1)[:n],
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("num_real",))
+@partial(jax.jit, static_argnames=("num_real",))
 def build_cluster_tables_device(tri_v0, tri_e1, tri_e2, num_real: int):
     """On-device acceleration-structure (re)build — the LBVH-build role
     (BASELINE config[4], SURVEY.md section 7 stage 4) as device compute:
-    Morton codes -> jax.lax.sort (the TPU radix-sort equivalent) ->
+    Morton codes -> jax.lax.sort ->
     permuted triangle soup -> reshape-reduce cluster AABBs -> packed
-    DMA blocks. Everything jit-compiled, so dynamic/animated geometry
+    blocks. Everything jit-compiled, so dynamic/animated geometry
     can rebuild per frame without host round trips.
 
     Inputs are TRI_PAD-padded (T, 3) arrays; `num_real` marks the valid

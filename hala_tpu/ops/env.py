@@ -55,10 +55,9 @@ def _bilinear(img: jnp.ndarray, u, v):
     x1i = jnp.mod(x0i + 1, w)
     y0i = jnp.clip(y0.astype(jnp.int32), 0, h - 1)
     y1i = jnp.clip(y0i + 1, 0, h - 1)
-    # Single-index row gathers from the flattened table: a 2-vector
-    # advanced index (img[y, x]) lowers to a multi-dim XLA gather that
-    # is several times slower on TPU than take() over y*w+x (measured
-    # 4.4x on the whole envmap bench config across env fetch sites).
+    # Single-index row gathers from the flattened table: take() over
+    # y*w+x instead of a 2-vector advanced index (img[y, x]), which
+    # lowers to a multi-dim XLA gather.
     flat = img.reshape(h * w, -1)
     c00 = jnp.take(flat, y0i * w + x0i, axis=0)
     c01 = jnp.take(flat, y0i * w + x1i, axis=0)
@@ -74,11 +73,8 @@ def _bilinear(img: jnp.ndarray, u, v):
 
 def _quad_fetch(env, u, v):
     """ONE 16-wide row take from the precomputed 2x2-neighborhood table
-    (EnvMap.quad) returning the four bilinear corners' rgb+luminance.
-    TPU element gathers cost ~9 ns per ROW nearly independent of width,
-    so this replaces 4-5 separate takes per fetch site — the envmap
-    bench config was ~100% env-gather-bound at 0.44x baseline (round-3
-    ledger). Returns (c00, c01, c10, c11 (N,4), x0i, y0i, fx, fy)."""
+    (EnvMap.quad) returning the four bilinear corners' rgb+luminance:
+    one take replaces 4-5 separate takes per fetch site. Returns (c00, c01, c10, c11 (N,4), x0i, y0i, fx, fy)."""
     h, w = env.height, env.width
     x = u * w - 0.5
     y = v * h - 0.5

@@ -60,13 +60,11 @@ def canonical_hit(o, d, tri_v0, tri_e1, tri_e2, hit: Hit) -> Hit:
     canonical XLA Moller-Trumbore (same formulas as `ray_triangle`, so
     canonical results match the brute-force ground truth bit-for-bit).
 
-    The MXU-factored grouped kernel and the sequential VPU kernels
-    round differently; which engine produced a ray's hit can depend on
-    its NEIGHBORS (group composition, fallback truncation), which under
-    sharding depends on the device count. Canonicalizing the winner
-    makes the reported bits a pure function of (ray, winning triangle),
-    restoring the multi-chip bit-identity invariant (advisor round-2
-    finding on the grouped fallback merge). Winner identity itself can
+    A kernel that keeps its running t in registers rounds differently
+    from the XLA scan (fused multiply-adds, another division).
+    Canonicalizing the winner makes the reported bits a pure function of
+    (ray, winning triangle), so results do not depend on the engine or
+    on how rays are batched across devices. Winner identity itself can
     still flip on exact cross-engine ties — measure-zero in practice.
     """
     tid = jnp.maximum(hit.tri, 0)
@@ -165,7 +163,9 @@ def intersect_bruteforce(
 def occluded_bruteforce(
     o, d, t_far, tri_v0, tri_e1, tri_e2, chunk: int = 2048
 ) -> jnp.ndarray:
-    """Any-hit shadow query: True where something lies in (t_min, t_far)."""
+    """Any-hit shadow query: True where a triangle lies in the open
+    interval (t_min, t_far) — the same bound as a closest-hit query with
+    t_max = t_far, so either form answers a shadow ray alike."""
     num_tris = tri_v0.shape[0]
     chunk = math.gcd(min(chunk, num_tris), num_tris)
 
@@ -175,7 +175,7 @@ def occluded_bruteforce(
         e1 = jax.lax.dynamic_slice_in_dim(tri_e1, start, chunk)
         e2 = jax.lax.dynamic_slice_in_dim(tri_e2, start, chunk)
         t, _, _ = ray_triangle(o, d, v0, e1, e2)
-        hit_any = jnp.any(t < t_far[:, None] * (1.0 - 1e-4), axis=1)
+        hit_any = jnp.any(t < t_far[:, None], axis=1)
         return blocked | hit_any, None
 
     blocked, _ = jax.lax.scan(

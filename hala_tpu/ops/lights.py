@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from .intersect import T_MAX, ray_quad, ray_sphere
@@ -197,7 +198,9 @@ def intersect_lights(lights, o: jnp.ndarray, d: jnp.ndarray) -> LightHit:
     # Quad hits: only through the emitting face (cos > 0 toward ray origin)
     t_quad = ray_quad(o, d, lpos, lu, lv)
     n_q = normalize(jnp.cross(lu, lv))  # (L,3)
-    facing = -jnp.einsum("nk,lk->nl", d, n_q) > 0.0
+    facing = -jnp.einsum(
+        "nk,lk->nl", d, n_q, precision=jax.lax.Precision.HIGHEST
+    ) > 0.0
     t_quad = jnp.where((lt == 3)[None, :] & facing, t_quad, T_MAX)
 
     t_sph = ray_sphere(o, d, lpos, lradius)

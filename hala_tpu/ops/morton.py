@@ -3,10 +3,8 @@
 The device path is the first stage of the on-device LBVH build
 (BASELINE config[4]: Morton codes -> radix sort -> hierarchy): 30-bit
 codes (10 bits/axis) over positions normalized to a scene AABB, sorted
-with `jax.lax.sort` (XLA's vectorized sort is the TPU radix-sort
-equivalent). The host version orders triangles into spatially coherent
-clusters at upload (scene/loader/uploader.py), which is what the
-cluster-streaming intersector consumes.
+with `jax.lax.sort`. The host version orders small meshes into
+spatially coherent clusters at upload (scene/loader/uploader.py).
 """
 
 from __future__ import annotations
@@ -59,8 +57,8 @@ def morton3d(points: jnp.ndarray, bounds_min, bounds_max) -> jnp.ndarray:
 
 
 def sort_by_morton(codes: jnp.ndarray, *payloads):
-    """Device sort: (sorted_codes, permuted payloads...). XLA sort is the
-    TPU-native radix-sort replacement (SURVEY.md section 7 stage 4)."""
+    """Device sort: (sorted_codes, permuted payloads...). XLA sort takes
+    the radix-sort role (SURVEY.md section 7 stage 4)."""
     order = jnp.argsort(codes)
     return (codes[order],) + tuple(
         jnp.take(p, order, axis=0) for p in payloads

@@ -1,24 +1,28 @@
-"""Pallas ray-triangle intersection kernel.
+"""Brute-force ray-triangle queries as Pallas kernels through Triton.
 
-The TPU replacement for hardware `trace_rays` at the intersection level
-(rt_renderer.rs:458-464). Design, per the TPU hardware model:
+The GPU replacement for hardware `trace_rays` at the intersection level
+(rt_renderer.rs:458-464). `ops.intersect.intersect_bruteforce` is the
+plain XLA version of the same query: it writes (rays, chunk) blocks of
+t/u/v to device memory for every triangle chunk and reads them back for
+the min-reduction. Here one program owns a block of BLOCK_RAYS rays and
+keeps their running (t, triangle) best in registers while it streams the
+whole triangle table through in BLOCK_TRIS-wide tiles, so the only
+device-memory traffic is rays in, triangles in (L2-resident across
+programs) and hits out.
 
-* rays live in VMEM as (R, 128) f32 tiles, one component per buffer
-  (SoA) — every op in the Moller-Trumbore test is then a clean full-width
-  VPU op;
-* the triangle chunk lives in SMEM as 9 scalar arrays; the kernel loops
-  over triangles with `fori_loop`, broadcasting each triangle's scalars
-  against the whole ray tile (34-triangle Cornell: one chunk; larger
-  scenes: a second grid dimension streams chunks with the output block
-  revisited as the accumulator);
-* grid = (ray_blocks, tri_chunks); outputs (best t / tri / u / v) are
-  indexed by ray block only, so successive chunk steps accumulate into
-  the same VMEM block (j == 0 initializes).
+* Closest-hit: the kernel returns each ray's winning (t, triangle); the
+  wrapper re-evaluates (t, u, v) for the winner with the canonical XLA
+  Moller-Trumbore (`ops.intersect.canonical_hit`), so reported bits are
+  a pure function of (ray, winning triangle) and match the brute-force
+  reference wherever the winners agree. Ties break to the lowest
+  triangle id, as in the reference scan.
+* Any-hit: a ray block retires as soon as every ray in it is blocked
+  (or can never be: t_far at or below the ray epsilon).
 
-The same kernel serves closest-hit and any-hit (shadow) queries: shadow
-rays pass t_max = light distance and test `tri >= 0` afterwards.
-Validated against ops.intersect.intersect_bruteforce in
-tests/test_pallas.py.
+Layouts: rays are an (8, N_pad) table (o.xyz, d.xyz, t_max, unused);
+triangles a (9, T_pad) table (v0.xyz, e1.xyz, e2.xyz), zero-padded — a
+zero triangle has det == 0 and never hits. Block sizes are powers of two
+(Triton's block model); the padding to them happens here.
 """
 
 from __future__ import annotations
@@ -28,95 +32,152 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..intersect import Hit, T_MAX, out_struct
+from ..intersect import T_MAX, Hit, canonical_hit, out_struct
 
-LANES = 128
-RAY_SUBLANES = 16          # rays per program = RAY_SUBLANES * LANES = 2048
-TRI_CHUNK = 128            # triangles per SMEM-resident chunk
-SMEM_BLOCK = 512  # rank-1 SMEM operand block; matches XLA T(512) tiling
+BLOCK_RAYS = 64    # rays per program (registers: rays x tris per step)
+BLOCK_TRIS = 32    # triangles per inner step
+NUM_WARPS = 4
+# Python scalars: a kernel may not capture jax arrays (ops.intersect's
+# EPS / T_MAX / ray_triangle t_min, same values).
 _EPS = 1.0e-7
+_T_BIG = 3.0e38
 _T_MIN = 1.0e-4
 
 
-def _make_kernel(num_real: int):
-    """Kernel specialized on the real (un-padded) triangle count so the
-    inner loop skips the TRI_PAD padding (3.8x waste on Cornell)."""
-    return functools.partial(_kernel_body, num_real)
+def _mt_t(tri_ref, ts, ox, oy, oz, dx, dy, dz):
+    """Moller-Trumbore t of every (ray, triangle) pair of one tile, in the
+    operation order of ops.intersect.ray_triangle; T_MAX where the pair
+    misses. Rays are (BR, 1) columns, triangle rows (1, BT)."""
+    row = lambda k: tri_ref[k, ts][None, :]
+    v0x, v0y, v0z = row(0), row(1), row(2)
+    e1x, e1y, e1z = row(3), row(4), row(5)
+    e2x, e2y, e2z = row(6), row(7), row(8)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = px * e1x + py * e1y + pz * e1z
+    inv_det = jnp.where(jnp.abs(det) > _EPS, 1.0 / det, 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    valid = (
+        (jnp.abs(det) > _EPS)
+        & (u >= 0.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t > _T_MIN)
+    )
+    return jnp.where(valid, t, _T_BIG)
 
 
-def _kernel_body(
-    num_real,
-    # SMEM triangle chunk (9 x (TRI_CHUNK,))
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
-    # VMEM ray tiles ((RAY_SUBLANES, LANES) each)
-    ox, oy, oz, dx, dy, dz, tmax,
-    # outputs (ray-block indexed; revisited across the chunk dimension)
-    t_out, tri_out, u_out, v_out,
-):
-    j = pl.program_id(1)
+def _tile(j, bt):
+    """Slice of triangle tile j (j is 0 for the peeled first tile)."""
+    start = j * bt
+    if not isinstance(start, int):
+        start = pl.multiple_of(start, bt)
+    return pl.ds(start, bt)
 
-    @pl.when(j == 0)
-    def _init():
-        t_out[:] = tmax[:]
-        tri_out[:] = jnp.full(t_out.shape, -1, jnp.int32)
-        u_out[:] = jnp.zeros(t_out.shape, jnp.float32)
-        v_out[:] = jnp.zeros(t_out.shape, jnp.float32)
 
-    rdx, rdy, rdz = dx[:], dy[:], dz[:]
-    rox, roy, roz = ox[:], oy[:], oz[:]
-    base = j * SMEM_BLOCK
+def _load_rays(ray_ref, br):
+    rs = pl.ds(pl.multiple_of(pl.program_id(0) * br, br), br)
+    cols = [ray_ref[k, rs] for k in range(7)]
+    return rs, [c[:, None] for c in cols[:6]], cols[6]
 
-    def body(t, _):
-        av0x = v0x[t]
-        av0y = v0y[t]
-        av0z = v0z[t]
-        ae1x = e1x[t]
-        ae1y = e1y[t]
-        ae1z = e1z[t]
-        ae2x = e2x[t]
-        ae2y = e2y[t]
-        ae2z = e2z[t]
 
-        # pvec = d x e2 (triangle scalars broadcast over the ray tile)
-        px = rdy * ae2z - rdz * ae2y
-        py = rdz * ae2x - rdx * ae2z
-        pz = rdx * ae2y - rdy * ae2x
-        det = px * ae1x + py * ae1y + pz * ae1z
-        inv_det = jnp.where(jnp.abs(det) > _EPS, 1.0 / det, 0.0)
-        tx = rox - av0x
-        ty = roy - av0y
-        tz = roz - av0z
-        u = (tx * px + ty * py + tz * pz) * inv_det
-        # qvec = tvec x e1
-        qx = ty * ae1z - tz * ae1y
-        qy = tz * ae1x - tx * ae1z
-        qz = tx * ae1y - ty * ae1x
-        v = (rdx * qx + rdy * qy + rdz * qz) * inv_det
-        tt = (ae2x * qx + ae2y * qy + ae2z * qz) * inv_det
+def _closest_kernel(tri_ref, ray_ref, t_ref, id_ref, *, n_tiles, br, bt):
+    rs, r, tmax = _load_rays(ray_ref, br)
+    lane = jnp.arange(bt, dtype=jnp.int32)[None, :]
 
-        t_cur = t_out[:]
-        ok = (
-            (jnp.abs(det) > _EPS)
-            & (u >= 0.0)
-            & (v >= 0.0)
-            & (u + v <= 1.0)
-            & (tt > _T_MIN)
-            & (tt < t_cur)
+    def tile_best(j):
+        """(min t, lowest triangle id at that t) of tile j."""
+        tt = _mt_t(tri_ref, _tile(j, bt), *r)
+        t_min = jnp.min(tt, axis=1)
+        loc = jnp.min(jnp.where(tt == t_min[:, None], lane, bt), axis=1)
+        return t_min, j * bt + loc
+
+    def body(j, carry):
+        t_best, id_best = carry
+        t_min, idx = tile_best(j)
+        better = t_min < t_best  # strict: earlier tiles win ties
+        return (
+            jnp.where(better, t_min, t_best),
+            jnp.where(better, idx, id_best),
         )
-        t_out[:] = jnp.where(ok, tt, t_cur)
-        tri_out[:] = jnp.where(ok, base + t, tri_out[:])
-        u_out[:] = jnp.where(ok, u, u_out[:])
-        v_out[:] = jnp.where(ok, v, v_out[:])
-        return 0
 
-    count = jnp.clip(num_real - base, 0, SMEM_BLOCK)
-    jax.lax.fori_loop(0, count, body, 0)
+    # The first tile seeds the carry, so carry and body share one type
+    # (inside shard_map too); t_max applies once at the end: the first
+    # minimum below t_max is the reference scan's winner.
+    t_best, id_best = jax.lax.fori_loop(1, n_tiles, body, tile_best(0))
+    hit = t_best < tmax
+    t_ref[rs] = jnp.where(hit, t_best, tmax)
+    id_ref[rs] = jnp.where(hit, id_best, -1)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "num_real"))
-def intersect_pallas(
+def _anyhit_kernel(tri_ref, ray_ref, occ_ref, *, n_tiles, br, bt):
+    rs, r, t_far = _load_rays(ray_ref, br)
+
+    def tile_hit(j):
+        tt = _mt_t(tri_ref, _tile(j, bt), *r)
+        return jnp.max(jnp.where(tt < t_far[:, None], 1, 0), axis=1)
+
+    def cond(carry):
+        j, _, done = carry
+        return (j < n_tiles) & (jnp.min(done) == 0)
+
+    def body(carry):
+        j, blocked, done = carry
+        hit = tile_hit(j)
+        return j + 1, blocked | hit, done | hit
+
+    # a ray with t_far at or below the ray epsilon can never be blocked
+    hit0 = tile_hit(0)
+    done0 = hit0 | jnp.where(t_far <= _T_MIN, 1, 0)
+    _, blocked, _ = jax.lax.while_loop(cond, body, (1, hit0, done0))
+    occ_ref[rs] = blocked
+
+
+def _tables(o, d, t_col, tri_v0, tri_e1, tri_e2, num_real, br, bt):
+    """Padded ray and triangle tables plus the static loop bounds."""
+    n = o.shape[0]
+    n_pad = -(-n // br) * br
+    rays = jnp.concatenate(
+        [o.T, d.T, t_col[None, :], jnp.zeros_like(t_col)[None, :]], axis=0
+    )
+    rays = jnp.pad(rays, ((0, 0), (0, n_pad - n)))
+    n_tiles = max(1, -(-num_real // bt))
+    tris = jnp.concatenate([tri_v0.T, tri_e1.T, tri_e2.T], axis=0)
+    t_slots = tris.shape[1]
+    if t_slots < n_tiles * bt:
+        tris = jnp.pad(tris, ((0, 0), (0, n_tiles * bt - t_slots)))
+    return rays, tris, n_pad, n_tiles
+
+
+def _call(kernel, rays, tris, out_shape, n_pad, br, interpret, num_warps):
+    return pl.pallas_call(
+        kernel,
+        out_shape=out_shape,
+        grid=(n_pad // br,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
+        interpret=interpret,
+    )(tris, rays)
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "interpret", "num_real", "block_rays", "block_tris", "num_warps",
+    ),
+)
+def intersect_pallas_ranked(
     o: jnp.ndarray,
     d: jnp.ndarray,
     tri_v0: jnp.ndarray,
@@ -125,92 +186,76 @@ def intersect_pallas(
     t_max=None,
     interpret: bool = False,
     num_real: int | None = None,
-) -> Hit:
-    """Closest hit over all triangles. o, d: (N, 3); tri_*: (T, 3) with
-    T a multiple of TRI_CHUNK (degenerate padding allowed; pass
-    `num_real` to skip padded triangles entirely). N is padded
-    internally to a ray-block multiple."""
+    block_rays: int = BLOCK_RAYS,
+    block_tris: int = BLOCK_TRIS,
+    num_warps: int = NUM_WARPS,
+) -> tuple[Hit, jnp.ndarray]:
+    """Closest hit over the first `num_real` triangle slots (all slots
+    by default). o, d: (N, 3); tri_*: (T, 3). Returns (hit, t_rank):
+    `hit` has the contract of ops.intersect.intersect_bruteforce, with
+    canonical (t, u, v); `t_rank` is the kernel's own t of the winner
+    (t_max on a miss), the key the kernel ranked triangles by — merging
+    per-shard winners on it picks the winner the whole table would."""
     n = o.shape[0]
-    num_tris = tri_v0.shape[0]
-    assert num_tris % TRI_CHUNK == 0
     if num_real is None:
-        num_real = num_tris
-    block = RAY_SUBLANES * LANES
-    n_pad = -(-n // block) * block
-
-    def comp(a, i):
-        col = a[:, i]
-        if n_pad != n:
-            col = jnp.pad(col, (0, n_pad - n))
-        return col.reshape(n_pad // LANES, LANES)
-
-    rays = [comp(o, 0), comp(o, 1), comp(o, 2),
-            comp(d, 0), comp(d, 1), comp(d, 2)]
+        num_real = tri_v0.shape[0]
+    like = o[:, 0]
     if t_max is None:
-        tmax = jnp.full((n_pad // LANES, LANES), T_MAX)
+        t_col = like * 0.0 + T_MAX
     else:
-        tm = jnp.broadcast_to(t_max, (n,)).astype(jnp.float32)
-        tm = jnp.pad(tm, (0, n_pad - n))
-        tmax = tm.reshape(n_pad // LANES, LANES)
-    rays.append(tmax)
-
-    # Rank-1 SMEM triangle tables padded to a 512-element multiple:
-    # XLA lays out f32[n] with tiling T(512), and Mosaic verifies block
-    # tiling T(128) against it — they only agree when n % 512 == 0
-    # (observed verifier failure at n=384; n=128 Cornell passed).
-    t_pad = -(-num_tris // 512) * 512 - num_tris
-    def col(a):
-        return jnp.pad(a, (0, t_pad)) if t_pad else a
-    tris = [
-        col(tri_v0[:, 0]), col(tri_v0[:, 1]), col(tri_v0[:, 2]),
-        col(tri_e1[:, 0]), col(tri_e1[:, 1]), col(tri_e1[:, 2]),
-        col(tri_e2[:, 0]), col(tri_e2[:, 1]), col(tri_e2[:, 2]),
-    ]
-    num_tris_pad = num_tris + t_pad
-
-    grid = (n_pad // block, num_tris_pad // SMEM_BLOCK)
-    tri_spec = pl.BlockSpec(
-        (SMEM_BLOCK,), lambda i, j: (j,), memory_space=pltpu.SMEM
+        t_col = like * 0.0 + jnp.broadcast_to(t_max, (n,)).astype(jnp.float32)
+    rays, tris, n_pad, n_tiles = _tables(
+        o, d, t_col, tri_v0, tri_e1, tri_e2, num_real, block_rays, block_tris
     )
-    ray_spec = pl.BlockSpec(
-        (RAY_SUBLANES, LANES), lambda i, j: (i, 0), memory_space=pltpu.VMEM
+    kernel = functools.partial(
+        _closest_kernel, n_tiles=n_tiles, br=block_rays, bt=block_tris
     )
-    out_spec = pl.BlockSpec(
-        (RAY_SUBLANES, LANES), lambda i, j: (i, 0), memory_space=pltpu.VMEM
+    t_best, id_best = _call(
+        kernel, rays, tris,
+        [out_struct((n_pad,), jnp.float32, rays),
+         out_struct((n_pad,), jnp.int32, rays)],
+        n_pad, block_rays, interpret, num_warps,
     )
-    shape2 = (n_pad // LANES, LANES)
-    t_best, tri_best, u_best, v_best = pl.pallas_call(
-        _make_kernel(num_real),
-        grid=grid,
-        in_specs=[tri_spec] * 9 + [ray_spec] * 7,
-        out_specs=[out_spec] * 4,
-        out_shape=[
-            out_struct(shape2, jnp.float32, rays[0]),
-            out_struct(shape2, jnp.int32, rays[0]),
-            out_struct(shape2, jnp.float32, rays[0]),
-            out_struct(shape2, jnp.float32, rays[0]),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(*tris, *rays)
-
-    return Hit(
-        t=t_best.reshape(-1)[:n],
-        tri=tri_best.reshape(-1)[:n],
-        u=u_best.reshape(-1)[:n],
-        v=v_best.reshape(-1)[:n],
-    )
+    zeros = t_col * 0.0
+    hit = Hit(t=t_best[:n], tri=id_best[:n], u=zeros, v=zeros)
+    return canonical_hit(o, d, tri_v0, tri_e1, tri_e2, hit), hit.t
 
 
+def intersect_pallas(o, d, tri_v0, tri_e1, tri_e2, t_max=None,
+                     **kwargs) -> Hit:
+    """Closest hit: the Hit of intersect_pallas_ranked."""
+    return intersect_pallas_ranked(
+        o, d, tri_v0, tri_e1, tri_e2, t_max=t_max, **kwargs
+    )[0]
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "interpret", "num_real", "block_rays", "block_tris", "num_warps",
+    ),
+)
 def occluded_pallas(
     o, d, t_far, tri_v0, tri_e1, tri_e2, interpret: bool = False,
     num_real: int | None = None,
+    block_rays: int = BLOCK_RAYS,
+    block_tris: int = BLOCK_TRIS,
+    num_warps: int = NUM_WARPS,
 ) -> jnp.ndarray:
-    """Any-hit via the closest-hit kernel with a clipped t_max."""
-    hit = intersect_pallas(
-        o, d, tri_v0, tri_e1, tri_e2,
-        t_max=t_far * (1.0 - 1e-4), interpret=interpret, num_real=num_real,
+    """Any-hit: True where a triangle lies in (t_min, t_far), the
+    contract of ops.intersect.occluded_bruteforce."""
+    n = o.shape[0]
+    if num_real is None:
+        num_real = tri_v0.shape[0]
+    tf = o[:, 0] * 0.0 + jnp.broadcast_to(t_far, (n,)).astype(jnp.float32)
+    rays, tris, n_pad, n_tiles = _tables(
+        o, d, tf, tri_v0, tri_e1, tri_e2, num_real, block_rays, block_tris
     )
-    return hit.tri >= 0
+    kernel = functools.partial(
+        _anyhit_kernel, n_tiles=n_tiles, br=block_rays, bt=block_tris
+    )
+    occ = _call(
+        kernel, rays, tris, out_struct((n_pad,), jnp.int32, rays),
+        n_pad, block_rays, interpret, num_warps,
+    )
+    return occ[:n] > 0

@@ -4,7 +4,7 @@ Role parity: the reference traces custom primitives through AABB
 geometries + intersection shaders (procedural BLAS,
 /root/reference/src/scene/loader/gpu_uploader.rs:818-840) dispatched
 via the PROCEDURAL hit-group class
-(/root/reference/src/rt_renderer.rs:1016-1112). On TPU there is no SBT:
+(src/rt_renderer.rs:1016-1112 of the reference). Here there is no SBT:
 procedural primitives are a small SoA table intersected analytically in
 the same dispatch as the triangle query, and the closest-hit merge
 encodes them as `tri >= PROC_BASE` so the Hit plumbing (state carries,

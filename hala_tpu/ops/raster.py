@@ -15,6 +15,7 @@ Perspective-correct interpolation uses 1/w-weighted barycentrics.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import jax
@@ -35,7 +36,9 @@ def transform_vertices(positions: jnp.ndarray, view_proj: jnp.ndarray):
     homo = jnp.concatenate(
         [positions, jnp.ones_like(positions[..., :1])], axis=-1
     )
-    return homo @ view_proj.T
+    # float32 product (the GPU default would round operands to TF32 and
+    # move screen positions by ~1e-3 relative)
+    return jnp.matmul(homo, view_proj.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def clip_to_screen(clip: jnp.ndarray, width: int, height: int):
@@ -68,8 +71,7 @@ def rasterize(
     With `tri_ids`, the fragment `tri` field carries the GLOBAL id
     resolved in-kernel via the winner one-hot (vector math) — callers
     binning through candidate lists must NOT remap with a per-pixel
-    `take(ids, frag.tri)` afterwards: that lowers to one element gather
-    per pixel on TPU (~9 ns each, ~20 ms per 1080p frame).
+    `take(ids, frag.tri)` afterwards (one more gather per pixel).
 
     With `depth_bound`, a pixel only accepts fragments strictly FARTHER
     than its bound (depth < bound in reverse-Z) — the depth-peeling
@@ -168,9 +170,9 @@ def rasterize(
             z = jnp.where(z < depth_bound[:, None], z, -1.0)
         z_best = jnp.max(z, axis=1)
         # Gather-free winner resolve: per-pixel row gathers
-        # (u_pc[rows, argmax]) lower to ~9 ns/row element gathers on TPU
-        # (two of them = ~40 ms at 2M pixels), and the full (N, C)
-        # perspective divides are wasted on losers. Instead pick the
+        # (u_pc[rows, argmax]) would each be one gather per pixel, and
+        # the full (N, C) perspective divides are wasted on losers.
+        # Instead pick the
         # first column achieving z_best (== argmax tie order) with a
         # one-hot mask and divide only the winner's weights.
         cols = jax.lax.broadcasted_iota(jnp.int32, z.shape, 1)
@@ -434,6 +436,28 @@ def _rasterize_tiled_scatter(
     return out, jnp.mean(over.astype(jnp.float32))
 
 
+def raster_route(platform: str, num_tris: int, tile: int) -> str:
+    """The path `rasterize_tiled(scatter=None)` takes for a mesh of
+    `num_tris` triangles on a jax platform.
+
+    Up to 4096 triangles the per-tile overlap table ("overlap") holds
+    every candidate. Past that both capped tables drop geometry at the
+    atrium_big bench camera, so large meshes take an exact path: the
+    segment kernel (ops/raster_kernel.py, "exact") on a GPU, the full
+    O(pixels x triangles) XLA scan ("scan", the reference) on the CPU
+    or when the tile is not a power of two."""
+    if platform not in ("gpu", "cpu"):
+        raise ValueError(
+            f"no raster path for jax platform {platform!r} "
+            "(supported: gpu, cpu)"
+        )
+    if num_tris <= 4096:
+        return "overlap"
+    if platform == "gpu" and tile & (tile - 1) == 0:
+        return "exact"
+    return "scan"
+
+
 def rasterize_tiled(
     tri_screen: jnp.ndarray,   # (T, 3, 2)
     tri_depth: jnp.ndarray,    # (T, 3)
@@ -444,38 +468,41 @@ def rasterize_tiled(
     tile: int = 64,
     k_max: int = 256,
     scatter: bool | str | None = None,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ) -> tuple[FragmentBuffer, jnp.ndarray]:
     """Tile-binned rasterization (BASELINE config[5]): triangles are
     binned to screen tiles by their screen AABB; each tile tests only its
-    candidate list. Same cull+stream shape as the ray-tracing cluster
-    intersector — bins replace per-pixel full scans, cutting work from
-    O(pixels x triangles) to O(pixels x bin occupancy).
+    candidate list, cutting work from O(pixels x triangles) to
+    O(pixels x bin occupancy).
 
     Returns (FragmentBuffer flat over pixels, overflow fraction of tiles
     whose candidate list clipped at k_max). Meshlets are the natural
     binning granularity upstream (SURVEY.md section 7 stage 7).
 
-    Past ~4k triangles the per-tile overlap+argsort here is O(tiles x T)
-    and dominated by an (tiles, T) sort; `scatter=None` auto-routes
-    large meshes to the EXACT Pallas segment kernel
-    (ops/raster_kernel.py — no per-tile candidate cap; both capped
-    paths measurably drop geometry at the atrium_big bench camera).
-    `scatter="exact"` forces it, `scatter=True` the capped scatter
-    table, `scatter=False` the capped per-tile-overlap path."""
+    `scatter=None` picks the path with raster_route; "exact" forces the
+    segment kernel (`interpret=True` runs it in the Pallas interpreter),
+    "scan" the full scan, True the capped scatter table and False the
+    capped per-tile-overlap path."""
     t = tri_screen.shape[0]
-    lane_ok = (tile * tile) % 128 == 0
     if scatter is None:
-        scatter = "exact" if (t > 4096 and lane_ok) else False
+        route = raster_route(jax.default_backend(), t, tile)
+        scatter = False if route == "overlap" else route
     if scatter == "exact":
         from .raster_kernel import rasterize_tiled_exact
 
-        if interpret is None:
-            interpret = jax.default_backend() == "cpu"
         return rasterize_tiled_exact(
             tri_screen, tri_depth, tri_inv_w, tri_valid,
             width, height, tile=tile, interpret=interpret,
         )
+    if scatter == "scan":
+        pix = jnp.arange(width * height, dtype=jnp.int32)
+        frag = rasterize(
+            tri_screen, tri_depth, tri_inv_w, tri_valid,
+            (pix % width).astype(jnp.float32) + 0.5,
+            (pix // width).astype(jnp.float32) + 0.5,
+            chunk=math.gcd(512, t),
+        )
+        return frag, jnp.float32(0.0)
     if scatter:
         return _rasterize_tiled_scatter(
             tri_screen, tri_depth, tri_inv_w, tri_valid,
@@ -515,10 +542,8 @@ def rasterize_tiled(
         frag = rasterize(s, dz, iw, sel, px, py, chunk=k_max, tri_ids=ids)
         return frag, count > k_max
 
-    # vmap, NOT lax.map: the sequential map paid ~0.2 ms of dispatch per
-    # tile (510 tiles at 1080p/64 = the whole measured 116 ms/frame on a
-    # 36-triangle scene); batched, the bin+test work runs as a handful
-    # of fused whole-screen ops.
+    # vmap, NOT lax.map: batched, the bin+test work runs as a handful
+    # of fused whole-screen ops instead of one small step per tile.
     frags, over = jax.vmap(per_tile)(tile_ids)
     # Reassemble tiles -> (H_pad, W_pad) -> crop
     def untile(a):

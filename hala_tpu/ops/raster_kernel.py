@@ -18,14 +18,17 @@ REAL candidate count:
    masks, and huge ones enumerate (tile, candidate) overlap pairs, so
    NO per-tile cap exists anywhere);
 2. per-candidate data is packed once into a (16, N) table in segment
-   order (one row take — TPU row gathers cost ~25 ns/row regardless
-   of width, so ONE take of 16-wide rows beats 14 column takes);
-3. a Pallas kernel walks each tile's segment in 128-candidate chunks
-   (HBM->SMEM DMA, scalar reads from SMEM — the ops/traverse.py
-   idiom), depth-testing each candidate against the tile's
-   (tile*tile/128, 128) pixel block with the exact edge/interpolation
-   formulas of ops/raster.rasterize, so the result is bit-equal to
-   the full O(pixels x triangles) scan.
+   order (one row take of 16-wide rows);
+3. a Pallas kernel through Triton walks each tile's segment. A 64x64
+   tile is split across TILE_SPLIT programs of tile*tile/TILE_SPLIT
+   pixels each (4096 pixels x 5 running outputs do not fit one
+   program's registers); each program reads its own segment bounds and
+   streams the segment in CAND_BLOCK-wide candidate blocks, testing
+   every (pixel, candidate) pair of a block with the exact edge and
+   interpolation formulas of ops/raster.rasterize and keeping the
+   first candidate of the block's max depth (strict reverse-Z GREATER
+   across blocks), which is the full scan's lowest-id-among-max-z
+   winner because segments are id-ordered.
 
 Role parity: the reference's fixed-function rasterizer has unbounded
 per-tile primitive throughput (rz_renderer.rs:429-505); this is the
@@ -39,113 +42,95 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .raster import FragmentBuffer
 
-LANES = 128
-CAND_CHUNK = 128          # candidates per SMEM chunk (16 x 128 f32 = 8 KB)
+CAND_CHUNK = 128          # candidate-table padding granularity
+CAND_BLOCK = 8            # candidates per kernel step (divides CAND_CHUNK)
+PIXELS_PER_PROGRAM = 256  # pixels of one tile handled by one program
+NUM_WARPS = 4
 _ID_BITS = 20             # fused key layout: cell << 20 | triangle id
 _ID_MASK = (1 << _ID_BITS) - 1
 _MID_SPAN = 8             # mid class covers <= 8x8 tiles (64 copies)
 
 
-def _raster_kernel_body(
-    sub, tw, tile,
-    starts_smem,              # SMEM (1, n_tiles + 1) i32 segment starts
-    data_hbm,                 # ANY (16, N_pad) f32 packed candidates
-    depth_o, tri_o, uw_o, vw_o, iw_o,   # VMEM (sub, LANES) blocks
-    dsmem,                    # scratch SMEM (16, CAND_CHUNK)
-    sem,
+def _raster_kernel(
+    starts_ref,               # (n_tiles + 1,) i32 segment starts
+    data_ref,                 # (16, N_pad) f32 packed candidates
+    depth_o, tri_o, uw_o, vw_o, iw_o,   # (n_tiles * tile * tile,)
+    *, tw, tile, pp, cb,
 ):
     tid = pl.program_id(0)
-    tx0 = jax.lax.rem(tid, jnp.int32(tw)) * tile
-    ty0 = (tid // jnp.int32(tw)) * tile
+    part = pl.program_id(1)
+    tx0 = jax.lax.rem(tid, tw) * tile
+    ty0 = (tid // tw) * tile
+    pix = part * pp + jnp.arange(pp, dtype=jnp.int32)
+    px = (tx0 + jax.lax.rem(pix, tile)).astype(jnp.float32)[:, None] + 0.5
+    py = (ty0 + pix // tile).astype(jnp.float32)[:, None] + 0.5
+    lane = jnp.arange(cb, dtype=jnp.int32)[None, :]
 
-    subs = jax.lax.broadcasted_iota(jnp.int32, (sub, LANES), 0)
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (sub, LANES), 1)
-    idx = subs * LANES + lanes
-    px = (tx0 + jax.lax.rem(idx, jnp.int32(tile))).astype(jnp.float32) + 0.5
-    py = (ty0 + idx // jnp.int32(tile)).astype(jnp.float32) + 0.5
+    start = starts_ref[tid]
+    end = starts_ref[tid + 1]
 
-    depth_o[:] = jnp.zeros((sub, LANES), jnp.float32)
-    tri_o[:] = jnp.full((sub, LANES), -1, jnp.int32)
-    uw_o[:] = jnp.zeros((sub, LANES), jnp.float32)
-    vw_o[:] = jnp.zeros((sub, LANES), jnp.float32)
-    iw_o[:] = jnp.zeros((sub, LANES), jnp.float32)
-
-    start = starts_smem[0, tid]
-    end = starts_smem[0, tid + 1]
-
-    def chunk_body(carry):
-        cb = carry
-        cp = pltpu.make_async_copy(
-            data_hbm.at[:, pl.ds(cb * CAND_CHUNK, CAND_CHUNK)], dsmem, sem
+    def body(c, carry):
+        depth, gid, uw, vw, iw = carry
+        cs = pl.ds(pl.multiple_of(c * cb, cb), cb)
+        row = lambda k: data_ref[k, cs][None, :]
+        x0, y0, x1, y1, x2, y2 = (row(k) for k in range(6))
+        z0, z1, z2, iw0, iw1, iw2 = (row(k) for k in range(6, 12))
+        sgn, inv_area, ids = row(12), row(13), row(14)
+        j = c * cb + lane
+        live = (j >= start) & (j < end)
+        # Exact ops/raster.rasterize edge functions: w0=edge(b,c),
+        # w1=edge(c,a), w2=edge(a,b); e(p)=d.x*(py-p0.y)-d.y*(px-p0.x).
+        w0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
+        w1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
+        w2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+        inside = (
+            live & (w0 * sgn >= 0.0) & (w1 * sgn >= 0.0) & (w2 * sgn >= 0.0)
         )
-        cp.start()
-        cp.wait()
-        lo = jnp.maximum(start - cb * CAND_CHUNK, 0)
-        hi = jnp.minimum(end - cb * CAND_CHUNK, CAND_CHUNK)
+        l0 = w0 * inv_area
+        l1 = w1 * inv_area
+        l2 = w2 * inv_area
+        z = jnp.where(inside, l0 * z0 + l1 * z1 + l2 * z2, -1.0)
+        z_best = jnp.max(z, axis=1)
+        first = jnp.min(
+            jnp.where(inside & (z == z_best[:, None]), lane, cb), axis=1
+        )
+        onehot = lane == first[:, None]
+        pick = lambda x: jnp.sum(jnp.where(onehot, x, 0.0), axis=1)
+        # Strict GREATER + id-ordered segment == the full scan's
+        # lowest-id-among-max-z winner (reverse-Z, rz_renderer.rs:494).
+        better = z_best > depth
+        return (
+            jnp.where(better, z_best, depth),
+            jnp.where(better, pick(ids).astype(jnp.int32), gid),
+            jnp.where(better, pick(l1 * iw1), uw),
+            jnp.where(better, pick(l2 * iw2), vw),
+            jnp.where(better, pick(l0 * iw0 + l1 * iw1 + l2 * iw2), iw),
+        )
 
-        def cand_body(k, _):
-            j = lo + k
-            x0 = dsmem[0, j]
-            y0 = dsmem[1, j]
-            x1 = dsmem[2, j]
-            y1 = dsmem[3, j]
-            x2 = dsmem[4, j]
-            y2 = dsmem[5, j]
-            z0 = dsmem[6, j]
-            z1 = dsmem[7, j]
-            z2 = dsmem[8, j]
-            iw0 = dsmem[9, j]
-            iw1 = dsmem[10, j]
-            iw2 = dsmem[11, j]
-            sgn = dsmem[12, j]
-            inv_area = dsmem[13, j]
-            gid = dsmem[14, j].astype(jnp.int32)
-
-            # Exact ops/raster.rasterize edge functions: w0=edge(b,c),
-            # w1=edge(c,a), w2=edge(a,b); e(p)=d.x*(py-p0.y)-d.y*(px-p0.x).
-            w0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
-            w1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
-            w2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
-            inside = (
-                (w0 * sgn >= 0.0) & (w1 * sgn >= 0.0) & (w2 * sgn >= 0.0)
-            )
-            l0 = w0 * inv_area
-            l1 = w1 * inv_area
-            l2 = w2 * inv_area
-            z = l0 * z0 + l1 * z1 + l2 * z2
-            iw_i = l0 * iw0 + l1 * iw1 + l2 * iw2
-            # Strict GREATER + id-ordered segment == the full scan's
-            # lowest-id-among-max-z winner (reverse-Z, rz_renderer.rs:494).
-            better = inside & (z > depth_o[:])
-            depth_o[:] = jnp.where(better, z, depth_o[:])
-            tri_o[:] = jnp.where(better, gid, tri_o[:])
-            uw_o[:] = jnp.where(better, l1 * iw1, uw_o[:])
-            vw_o[:] = jnp.where(better, l2 * iw2, vw_o[:])
-            iw_o[:] = jnp.where(better, iw_i, iw_o[:])
-            return 0
-
-        jax.lax.fori_loop(0, hi - lo, cand_body, 0)
-        return cb + 1
-
-    jax.lax.while_loop(
-        lambda cb: (start < end) & (cb * CAND_CHUNK < end),
-        chunk_body,
-        start // CAND_CHUNK,
+    zeros = jnp.zeros((pp,), jnp.float32)
+    init = (zeros, jnp.full((pp,), -1, jnp.int32), zeros, zeros, zeros)
+    depth, gid, uw, vw, iw = jax.lax.fori_loop(
+        start // cb, (end + cb - 1) // cb, body, init
     )
+    out = pl.ds(pl.multiple_of(tid * (tile * tile) + part * pp, pp), pp)
+    depth_o[out] = depth
+    tri_o[out] = gid
+    uw_o[out] = uw
+    vw_o[out] = vw
+    iw_o[out] = iw
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "width", "height", "tile", "mid_max", "huge_max", "cand_cap",
-        "interpret",
     ),
 )
-def rasterize_tiled_exact(
+def bin_candidates(
     tri_screen: jnp.ndarray,   # (T, 3, 2)
     tri_depth: jnp.ndarray,    # (T, 3)
     tri_inv_w: jnp.ndarray,    # (T, 3)
@@ -156,26 +141,23 @@ def rasterize_tiled_exact(
     mid_max: int = 4096,
     huge_max: int = 512,
     cand_cap: int = 0,
-    interpret: bool = False,
-) -> tuple[FragmentBuffer, jnp.ndarray]:
-    """Exact tile-binned rasterization (no per-tile candidate caps).
+):
+    """Exact per-tile candidate segments (plain XLA: classify, one fused
+    key sort, one packed row take).
 
-    Returns (FragmentBuffer flat over pixels, overflow flag in {0.0,
-    1.0}). Overflow fires only on the three STATIC selection bounds —
-    more than `mid_max` mid-size triangles, more than `huge_max` huge
-    ones, or more than `cand_cap` total (tile, candidate) pairs — all
-    sized generously above real meshes; per-tile counts are never
-    capped (contrast rasterize_tiled's k_max, which drops geometry on
-    the bench camera).
-    """
+    Returns (starts (n_tiles + 1,) i32, data (16, N_pad) f32 packed
+    candidates in segment order, overflow flag in {0.0, 1.0}). Tile k's
+    candidates are data[:, starts[k]:starts[k + 1]], id-ordered.
+    Overflow fires only on the three STATIC selection bounds — more than
+    `mid_max` mid-size triangles, more than `huge_max` huge ones, or
+    more than `cand_cap` total (tile, candidate) pairs — all sized
+    generously above real meshes; per-tile counts are never capped."""
     t = tri_screen.shape[0]
     assert t < (1 << _ID_BITS), "fused sort key holds ids < 2^20"
     tw = -(-width // tile)
     th = -(-height // tile)
     n_tiles = tw * th
     assert n_tiles * (1 << _ID_BITS) < (1 << 31), "cell bits overflow"
-    assert (tile * tile) % LANES == 0, "tile*tile must be lane-divisible"
-    sub = (tile * tile) // LANES
     mid_max = min(mid_max, t)
     huge_max = min(huge_max, t)
 
@@ -260,11 +242,11 @@ def rasterize_tiled_exact(
     key_all = jnp.concatenate(keys)
     n_all = key_all.shape[0]
     if cand_cap <= 0:
-        # The packed-table row gather costs ~25 ns/row on TPU, so pay
-        # for a realistic candidate population (2 covered tiles per
-        # onscreen triangle in the worst measured case), not for the
-        # sentinel-padded key count (n_all is ~10x the real total at
-        # the bench camera). Overflow reports if a scene exceeds it.
+        # Size the packed table for a realistic candidate population
+        # (2 covered tiles per onscreen triangle in the worst measured
+        # case), not for the sentinel-padded key count (n_all is ~10x
+        # the real total at the bench camera). Overflow reports if a
+        # scene exceeds it.
         cand_cap = min(n_all, max(131072, 2 * t))
     cand_cap = min(cand_cap, n_all)
     cap_pad = -(-cand_cap // CAND_CHUNK) * CAND_CHUNK
@@ -302,34 +284,68 @@ def rasterize_tiled_exact(
         data = jnp.pad(data, ((0, cap_pad - cand_cap), (0, 0)))
     data = data.T  # (16, cap_pad)
 
-    out_shape2 = (n_tiles * sub, LANES)
-    tile_spec = pl.BlockSpec(
-        (sub, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
+    over = jnp.maximum(
+        jnp.maximum(m_over.astype(jnp.float32), h_over.astype(jnp.float32)),
+        cap_over.astype(jnp.float32),
     )
+    return starts, data, over
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "width", "height", "tile", "mid_max", "huge_max", "cand_cap",
+        "interpret", "pixels_per_program", "cand_block", "num_warps",
+    ),
+)
+def rasterize_tiled_exact(
+    tri_screen: jnp.ndarray,   # (T, 3, 2)
+    tri_depth: jnp.ndarray,    # (T, 3)
+    tri_inv_w: jnp.ndarray,    # (T, 3)
+    tri_valid: jnp.ndarray,    # (T,)
+    width: int,
+    height: int,
+    tile: int = 64,
+    mid_max: int = 4096,
+    huge_max: int = 512,
+    cand_cap: int = 0,
+    interpret: bool = False,
+    pixels_per_program: int = PIXELS_PER_PROGRAM,
+    cand_block: int = CAND_BLOCK,
+    num_warps: int = NUM_WARPS,
+) -> tuple[FragmentBuffer, jnp.ndarray]:
+    """Exact tile-binned rasterization (no per-tile candidate caps).
+
+    Returns (FragmentBuffer flat over pixels, overflow flag in {0.0,
+    1.0}; see bin_candidates), bit-equal to the full scan of
+    ops/raster.rasterize (contrast rasterize_tiled's capped paths,
+    which drop geometry at the bench camera).
+    """
+    tw = -(-width // tile)
+    th = -(-height // tile)
+    n_tiles = tw * th
+    pp = min(pixels_per_program, tile * tile)
+    assert tile & (tile - 1) == 0 and (tile * tile) % pp == 0, (
+        "tile must be a power of two"
+    )
+    assert CAND_CHUNK % cand_block == 0
+    starts, data, over = bin_candidates(
+        tri_screen, tri_depth, tri_inv_w, tri_valid, width, height,
+        tile=tile, mid_max=mid_max, huge_max=huge_max, cand_cap=cand_cap,
+    )
+    n_px = n_tiles * tile * tile
+    f32 = jax.ShapeDtypeStruct((n_px,), jnp.float32)
     depth_b, tri_b, uw_b, vw_b, iw_b = pl.pallas_call(
-        functools.partial(_raster_kernel_body, sub, tw, tile),
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[tile_spec] * 5,
-        out_shape=[
-            jax.ShapeDtypeStruct(out_shape2, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape2, jnp.int32),
-            jax.ShapeDtypeStruct(out_shape2, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape2, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape2, jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.SMEM((16, CAND_CHUNK), jnp.float32),
-            pltpu.SemaphoreType.DMA,
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
+        functools.partial(
+            _raster_kernel, tw=tw, tile=tile, pp=pp, cb=cand_block
         ),
+        grid=(n_tiles, (tile * tile) // pp),
+        out_shape=[f32, jax.ShapeDtypeStruct((n_px,), jnp.int32), f32, f32,
+                   f32],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(starts[None, :], data)
+    )(starts, data)
 
     def untile(arr):
         arr = arr.reshape(th, tw, tile, tile)
@@ -340,9 +356,5 @@ def rasterize_tiled_exact(
     v = untile(vw_b) / jnp.maximum(untile(iw_b), 1e-12)
     frag = FragmentBuffer(
         depth=untile(depth_b), tri=untile(tri_b), u=u, v=v
-    )
-    over = jnp.maximum(
-        jnp.maximum(m_over.astype(jnp.float32), h_over.astype(jnp.float32)),
-        cap_over.astype(jnp.float32),
     )
     return frag, over

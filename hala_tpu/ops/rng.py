@@ -68,7 +68,7 @@ def bn_sample4(
     """Blue-noise-seeded four-dimensional sample (the reference binds its
     blue-noise texture as the per-pixel low-discrepancy source for ALL
     shader sampling — rt_renderer.rs:1117-1156, static binding 5 at
-    rt_renderer.rs:676-740; this is the TPU-native equivalent for every
+    rt_renderer.rs:676-740; this is the JAX equivalent for every
     sampling dimension, not just primary jitter).
 
     Cranley-Patterson construction: the texture supplies the PER-PIXEL
@@ -98,8 +98,8 @@ def bn_sample4(
     oy = (hsh[..., 1] % jnp.uint32(bh)).astype(jnp.int32)
     tx = (jnp.asarray(px, jnp.int32) + ox) % bw
     ty = (jnp.asarray(py, jnp.int32) + oy) % bh
-    # single-index gather (multi-vector indexing lowers to a slow
-    # multi-dim XLA gather on TPU; see ops/env.py)
+    # single-index gather (multi-vector indexing lowers to a
+    # multi-dim XLA gather; see ops/env.py)
     flat = blue_noise[:, :, :4].reshape(bh * bw, 4)
     texel = jnp.take(flat, ty * bw + tx, axis=0)
     # The rotation's pixel counter is fixed at 0 (shared by all pixels —

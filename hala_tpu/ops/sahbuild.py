@@ -4,27 +4,27 @@ Fills the quality role of the reference's hardware BLAS build
 (/root/reference/src/scene/loader/gpu_uploader.rs:774-967): on upload,
 triangles are partitioned into <=TRI_CHUNK-sized *leaves* by recursive
 binned-SAH splits, and each leaf occupies one (tail-padded) TRI_CHUNK
-block of the device soup. The streaming intersectors cull whole blocks
-by leaf AABB, so leaf tightness directly sets the ray x triangle pair
-count — measured on assets/atrium.glb primary rays: 23.2 chunk AABBs
-hit per ray with Morton-ordered fixed blocks vs 6.8 with SAH leaves
-(tris tested/ray 2971 -> ~870), a 3.4x cut in intersection work.
+block of the device soup. Leaf blocks are the unit of geometry
+sharding and of the cluster AABB tables (ops/cluster.py); a traversal
+that culls whole blocks by leaf AABB tests fewer ray x triangle pairs
+the tighter the leaves (on assets/atrium.glb primary rays: 23.2 chunk
+AABBs hit per ray with Morton-ordered fixed blocks vs 6.8 with SAH
+leaves).
 
 Interior padding: leaves average ~3/4 fill, so padding slots (slot map
 -1 -> degenerate far-away triangles) appear *between* leaves, not only
 at the array tail. Consumers must mask real triangles with
 `tri_mat >= 0`, never `arange < num_triangles`; the uploader keeps the
-tail-padded Morton layout for small scenes (<= SAH_MIN_TRIS), which is
-exactly the regime of the SMEM brute-force path that relies on the
-prefix invariant (ops/pallas/intersect_kernel.py `num_real`).
+tail-padded Morton layout for small scenes (<= SAH_MIN_TRIS), where the
+intersect kernel trims its scan to the real prefix
+(ops/pallas/intersect_kernel.py `num_real`).
 """
 from __future__ import annotations
 
 import numpy as np
 
 BINS = 16
-# Below this the SMEM brute-force path is used (integrator._backend
-# "auto" picks "pallas" at <= 4096 tris); keep tail-padded Morton there.
+# Up to this many triangles keep the tail-padded Morton order.
 SAH_MIN_TRIS = 4096
 
 

@@ -2,7 +2,7 @@
 
 Role parity: the reference's combined-image-sampler descriptor arrays
 with LINEAR mipmap samplers (gpu_uploader.rs:334-353 creates samplers
-with mipmap_mode LINEAR). TPUs have no texture unit, so this is software
+with mipmap_mode LINEAR). There is no texture unit here, so this is software
 trilinear with REPEAT wrap over TextureStack (SURVEY.md section 7
 hard-part #4): bilinear at the two bracketing packed mip levels,
 lerped by the fractional LOD.
@@ -72,10 +72,9 @@ def _bilinear(stack, idx, tex_idx, uv, level):
     """Bilinear fetch at one mip level. level (N,) i32."""
     sizes = jnp.take(stack.sizes, idx, axis=0)  # (N, 2) h, w (level 0)
     addrs, fx, fy = _bilinear_addrs(stack, sizes, idx, uv, level)
-    # Single-index row gathers from the flattened stack: a 3-vector
-    # advanced index lowers to a multi-dim XLA gather that is several
-    # times slower on TPU than take() over the linearized index (same
-    # finding as ops/env.py _bilinear). The four corner takes merge
+    # Single-index row gathers from the flattened stack: take() over
+    # the linearized index instead of a 3-vector advanced index (a
+    # multi-dim XLA gather; as in ops/env.py _bilinear). The four corner takes merge
     # into ONE (integer addresses are exact; the lerp keeps its (N, .)
     # shape, so output bits are unchanged — the round-5 takes-packing
     # rule).

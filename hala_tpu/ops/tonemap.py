@@ -13,6 +13,7 @@ All operate on (..., 3) linear radiance.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 # BT.709 luminance (rt_renderer.rs:1258-1260, also envmap.rs:249-251).
@@ -58,9 +59,11 @@ def _rrt_odt_fit(v: jnp.ndarray) -> jnp.ndarray:
 
 
 def tonemap_aces_fitted(c: jnp.ndarray) -> jnp.ndarray:
-    c = c @ _ACES_INPUT.T
+    # float32 products (the GPU default would round operands to TF32)
+    hi = jax.lax.Precision.HIGHEST
+    c = jnp.matmul(c, _ACES_INPUT.T, precision=hi)
     c = _rrt_odt_fit(c)
-    c = c @ _ACES_OUTPUT.T
+    c = jnp.matmul(c, _ACES_OUTPUT.T, precision=hi)
     return jnp.clip(c, 0.0, 1.0)
 
 

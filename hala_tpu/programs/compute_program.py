@@ -3,7 +3,7 @@
 Parity: reference src/compute_program.rs (HalaComputeProgram{Desc},
 SURVEY.md section 2.10): desc {shader_file_path, push_constant_size,
 bindings} wrapping a compute pipeline with bind/push_constants/
-dispatch[_indirect]. TPU mapping: the desc names a kernel in the
+dispatch[_indirect]. JAX mapping: the desc names a kernel in the
 KernelCache; `dispatch` jit-compiles it (per static-arg signature) and
 runs it on arrays. Push constants become keyword scalars; descriptor
 bindings become the positional array arguments.
@@ -60,7 +60,7 @@ class ComputeProgram:
 
     def dispatch_indirect(self, count, *buffers, **push_constants):
         """compute_program.rs:144-168 dispatch_indirect: the work count
-        is read from a DEVICE buffer, never the host. TPU analog:
+        is read from a DEVICE buffer, never the host. JAX analog:
         `count` is a device-computed i32 passed to the kernel as its
         first argument; the kernel's contract is to mask its
         statically-shaped work by it (shapes cannot be data-dependent

@@ -3,7 +3,7 @@
 Parity: reference src/graphics_program.rs (HalaGraphicsProgram{Desc}):
 desc with color/depth formats, VS or task+mesh shader paths + FS,
 topology, blend/rasterizer/multisample/depth state, and a full draw-call
-family. TPU mapping: the desc configures RasterSettings for the software
+family. JAX mapping: the desc configures RasterSettings for the software
 rasterizer — `validate()` rejects state the rasterizer cannot honor with
 a clear error, the blend state (graphics_program.rs:62-65) selects the
 transparency composite operator (rz_renderer.rs:490 forward pipelines
@@ -60,7 +60,7 @@ class BlendState:
             return _BLEND_TABLE[key]
         except KeyError:
             raise HalaRendererError(
-                f"unsupported blend state {key}: the TPU rasterizer "
+                f"unsupported blend state {key}: the software rasterizer "
                 f"implements {sorted(set(_BLEND_TABLE.values()))} via "
                 "depth-peeled compositing "
                 f"(supported factor triples: {list(_BLEND_TABLE)})"
@@ -69,7 +69,7 @@ class BlendState:
 
 @dataclasses.dataclass
 class GraphicsProgramDesc:
-    """graphics_program.rs:41-73 JSON shape (subset with TPU meaning)."""
+    """graphics_program.rs:41-73 JSON shape (subset with a meaning here)."""
 
     vertex_shader_file_path: str | None = "builtin:vertex_transform"
     task_shader_file_path: str | None = None
@@ -102,7 +102,7 @@ class GraphicsProgramDesc:
         return self.mesh_shader_file_path is not None
 
     def validate(self) -> str:
-        """Reject desc state the TPU rasterizer cannot honor; returns
+        """Reject desc state the software rasterizer cannot honor; returns
         the resolved blend operator. Clear-error parity with the Vulkan
         pipeline-creation failures the reference would surface."""
         if self.primitive_topology not in _TOPOLOGIES:
@@ -181,7 +181,7 @@ class GraphicsProgram:
     ):
         """Indirect draw family (graphics_program.rs:469-643:
         draw[_indexed]_indirect[_count] read a VkDrawIndirectCommand
-        from a DEVICE buffer). TPU analog: `prim_count` is a
+        from a DEVICE buffer). JAX analog: `prim_count` is a
         device-computed i32 scalar (or 0-d array) consumed inside the
         jit with no host round trip — shapes stay static and the count
         masks primitive validity. The `_count` variants collapse to the

@@ -3,7 +3,7 @@
 Parity: reference src/raytracing_program.rs (HalaRayTracingProgram{Desc}):
 desc with raygen/miss/hit/callable shader path lists + ray_recursion_depth
 (default 1, raytracing_program.rs:49-57), building a pipeline + SBT with
-bind/trace_rays. TPU mapping: the shader stages name kernels in the
+bind/trace_rays. JAX mapping: the shader stages name kernels in the
 KernelCache (defaults are the built-in integrator stages — camera raygen,
 environment miss, surface shading); `trace_rays(width, height)` runs one
 progressive frame of `models.integrator.render_frame` with
@@ -80,7 +80,6 @@ class RayTracingProgram:
             max_depth=self.desc.ray_recursion_depth,
             rr_depth=self.desc.rr_depth,
             env_type=self.desc.env_type,
-            use_bvh=self.scene.bvh is not None,
         )
         return render_frame(
             self.scene,
@@ -103,7 +102,7 @@ class RayTracingProgram:
     ):
         """raytracing_program.rs:330-340 trace_rays_indirect: the trace
         dimensions are read from a DEVICE buffer (the reference's
-        VkTraceRaysIndirectCommand). TPU analog: shapes must be static
+        VkTraceRaysIndirectCommand). JAX analog: shapes must be static
         under XLA, so the full static grid is traced and `pixel_count`
         — a device-computed i32, never host-synced — masks which pixels
         commit to the film (row-major prefix, the exact set a

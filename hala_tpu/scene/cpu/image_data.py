@@ -3,7 +3,7 @@
 Parity: reference src/scene/cpu/image_data.rs:14-59 (HalaImageData):
 decodes image files and maps to device formats. The reference maps
 Rgb8 -> R8G8B8_UNORM, Rgba8 -> B8G8R8A8_UNORM, Rgba32F ->
-R32G32B32A32_SFLOAT; on TPU every texture becomes an f32 RGBA numpy
+R32G32B32A32_SFLOAT; here every texture becomes an f32 RGBA numpy
 array (normalized for LDR), since device sampling reads SoA float
 stacks, not Vulkan formats. RGB8 sources are expanded to RGBA with
 alpha=255 exactly like gltf_loader.rs:407-419 ("GPU does not support

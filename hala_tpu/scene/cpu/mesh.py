@@ -4,7 +4,7 @@ Parity: reference src/scene/cpu/mesh.rs:6-18 (HalaMesh / HalaPrimitive).
 Instead of the reference's AoS `HalaVertex {position, normal, tangent,
 tex_coord}` (scene/vertex.rs:1-9, 44-byte interleaved layout), vertices
 are kept SoA from the start: separate numpy arrays per attribute. SoA is
-the natural device layout on TPU (lane-major loads), and the loader fills
+the natural device layout for batched kernels, and the loader fills
 these directly.
 """
 

@@ -3,13 +3,12 @@
 Parity: reference src/scene/gpu/scene.rs:11-37 (gpu::HalaScene) and the
 #[repr(C, align(16))] record layouts in gpu/{camera,light,material,mesh}.rs.
 Those layouts are the parity contract; here each record field becomes a
-column of a structure-of-arrays buffer (lane-major is the natural TPU
-layout), and the TLAS/BLAS handles become an LBVH node table built by
+column of a structure-of-arrays buffer, and the TLAS/BLAS handles become an LBVH node table built by
 `hala_tpu.ops.bvh`.
 
 Geometry is pre-transformed to world space at upload (the reference keeps
 object space + a 3x4 instance transform in the TLAS,
-gpu_uploader.rs:843-874; on TPU a flat world-space SoA removes a gather
+gpu_uploader.rs:843-874; here a flat world-space SoA removes a gather
 and an indirection from the traversal hot loop). `tri_prim` keeps the
 flattened (node, primitive) instance id — the TLAS `custom_index` parity —
 so per-primitive lookups (material, mesh data) still work.
@@ -64,17 +63,15 @@ class DeviceGeometry:
     tri_mat: jax.Array     # (T,) i32 — material index, -1 for padding
     tri_prim: jax.Array    # (T,) i32 — flattened instance id (custom_index parity)
     # Packed per-triangle shading attributes, one row-gather per hit
-    # instead of ~10 scalar gathers (TPU gathers are element-wise and
-    # dominated the megakernel profile). Layout (T, 32) f32:
+    # instead of ~10 scalar gathers. Layout (T, 32) f32:
     # [0:3] n0 [3:6] n1 [6:9] n2 [9:11] uv0 [11:13] uv1 [13:15] uv2
     # [15:18] geometric normal [18] material id [19] primitive id.
     shade_table: jax.Array | None = None
-    # Cluster tables (triangles are Morton-ordered at upload, so each
-    # TRI_PAD chunk is a spatial cluster): per-cluster AABBs for the
-    # culling pass and the (C, 16, TRI_PAD) packed geometry blocks the
-    # streaming kernel DMAs (ops/cluster.py): sublanes = components
-    # [v0.xyz | e1.xyz | e2.xyz | 7 pad], lanes = the cluster's triangles
-    # (last dim must be 128-aligned for Mosaic DMA slicing).
+    # Cluster tables (triangles are SAH- or Morton-ordered at upload, so
+    # each TRI_PAD chunk is a spatial cluster): per-cluster AABBs and
+    # the (C, 16, TRI_PAD) packed geometry blocks (ops/cluster.py): rows
+    # = components [v0.xyz | e1.xyz | e2.xyz | 7 pad], columns = the
+    # cluster's triangles. Geometry sharding splits at these blocks.
     cluster_min: jax.Array | None = None   # (C, 3)
     cluster_max: jax.Array | None = None   # (C, 3)
     tri_packed: jax.Array | None = None    # (C, 16, TRI_PAD)
@@ -146,7 +143,7 @@ class DeviceMaterials:
     # [24] metallic_roughness_map [25] emission_map [26] normal_map
     # [27] anisotropic.
     packed: jax.Array | None = None
-    # Static scene capability flags (the TPU analog of the reference's
+    # Static scene capability flags (the analog of the reference's
     # shader-permutation probes, cpu/scene.rs:59-95): the integrator
     # compiles out BSDF lobes no material in the scene uses.
     has_disney: bool = True
@@ -205,7 +202,7 @@ class TextureStack:
 
     The reference uploads per-texture Vulkan images with full mip chains
     and LINEAR/REPEAT samplers (gpu_uploader.rs:334-403, gen_mipmaps).
-    On TPU there is no texture unit: all textures are padded into one
+    There is no texture unit here: all textures are padded into one
     (NT, 2H, W, 4) f32 canvas where mip level l occupies rows
     [H*(2 - 2^(1-l)) ...) at width W/2^l — per-ray LOD selection is then
     just a computed row/col offset into one bilinear fetch

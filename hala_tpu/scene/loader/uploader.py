@@ -451,13 +451,12 @@ class SceneUploader:
         prim = np.concatenate(prims)
 
         # Cluster layout: each TRI_PAD block of the device soup is one
-        # spatially tight *cluster* — the unit of the streaming
-        # intersectors' AABB culling (ops/cluster.py, ops/traverse.py).
-        # Large scenes get ragged binned-SAH leaves (interior padding
-        # slots; see ops/sahbuild.py for the measured 3.4x pair cut);
-        # small scenes keep the tail-padded Morton order the SMEM
-        # brute-force path's `num_real` prefix trim relies on. `slots`
-        # maps device slot -> enumeration-order triangle (-1 = padding).
+        # spatially tight *cluster* (ops/cluster.py; the unit of
+        # geometry sharding). Large scenes get ragged binned-SAH leaves
+        # (interior padding slots; see ops/sahbuild.py); small scenes
+        # keep the tail-padded Morton order the intersect kernel's
+        # `num_real` prefix trim relies on. `slots` maps device slot ->
+        # enumeration-order triangle (-1 = padding).
         from ...ops.sahbuild import SAH_MIN_TRIS, sah_slot_map
 
         tri_lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
@@ -544,9 +543,8 @@ class SceneUploader:
         empty = ~np.isfinite(cluster_min[:, 0])
         cluster_min[empty] = far
         cluster_max[empty] = far
-        # Lane-aligned layout (C, 16, TRI_PAD): components on sublanes
-        # (12 used + 4 pad), triangles on lanes — DMA slices must be
-        # 128-aligned in the last dim (Mosaic tiling constraint).
+        # Layout (C, 16, TRI_PAD): components on rows (12 used + 4
+        # pad), the cluster's triangles on columns.
         tri_packed = np.zeros((n_clusters, 16, TRI_PAD), np.float32)
         tri_packed[:, 0:3] = v0p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)
         tri_packed[:, 3:6] = e1p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)

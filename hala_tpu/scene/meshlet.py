@@ -3,7 +3,7 @@
 Parity: reference src/scene/meshlet.rs:4-15 (HalaMeshlet) and the
 meshopt clustering parameters used by the uploader
 (gpu_uploader.rs:577-583: max_vertices=64, max_triangles=124,
-cone_weight=0.5). On TPU the meshlet doubles as the binning granularity
+cone_weight=0.5). Here the meshlet doubles as the binning granularity
 of the tile-binned software rasterizer.
 """
 

@@ -6,7 +6,7 @@ accumulation image is resumable state that is never persisted. This
 module adds the missing capability: the film (accum + AOVs), the frame
 index, and the sampler seed round-trip through one .npz, so a
 progressive render survives process restarts and chip preemptions (the
-TPU-native elastic-recovery story of SURVEY.md section 5.3).
+elastic-recovery story of SURVEY.md section 5.3).
 """
 
 from __future__ import annotations

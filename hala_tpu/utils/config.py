@@ -37,11 +37,10 @@ class RenderConfig:
     scene_path: str | None = None
     camera_index: int = 0
     output_path: str = "./out/render.png"
-    # TPU-specific
+    # integrator
     tile_size: int = 65536
     use_bvh: bool = True
     intersector: str = "auto"
-    shadow_intersector: str = "auto"
     spp: int = 1
     staged: bool = False
 
@@ -82,7 +81,6 @@ class RenderConfig:
             max_frames=self.max_frames,
             tile_size=self.tile_size, use_bvh=self.use_bvh,
             intersector=self.intersector,
-            shadow_intersector=self.shadow_intersector,
             spp=self.spp, staged=self.staged,
         )
         r.set_ground_color(list(self.ground_color))

@@ -1,7 +1,7 @@
 """Tracing / profiling hooks.
 
 Parity: reference SURVEY.md section 5.1 — GPU timestamp query pairs per
-frame + a 1 Hz statistics log + debug labels for capture tools. TPU
+frame + a 1 Hz statistics log + debug labels for capture tools. JAX
 equivalents:
 
 * `trace()` — context manager around `jax.profiler.trace`, producing a

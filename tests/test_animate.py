@@ -70,7 +70,7 @@ class TestRetransform:
             atol=1e-4,
         )
 
-        # traversal over the refit clusters stays exact
+        # the kernel over the retransformed soup stays exact
         rs = np.random.RandomState(0)
         o = jnp.asarray(
             rs.uniform(-0.8, 0.8, (256, 3)).astype(np.float32)
@@ -79,9 +79,11 @@ class TestRetransform:
         d = rs.normal(size=(256, 3)).astype(np.float32)
         d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True))
         bf = intersect_bruteforce(o, d, g2.tri_v0, g2.tri_e1, g2.tri_e2)
-        from hala_tpu.ops.cluster import intersect_clustered
+        from hala_tpu.ops.pallas.intersect_kernel import intersect_pallas
 
-        hit = intersect_clustered(o, d, g2, interpret=True)
+        hit = intersect_pallas(
+            o, d, g2.tri_v0, g2.tri_e1, g2.tri_e2, interpret=True
+        )
         np.testing.assert_array_equal(
             np.asarray(hit.tri), np.asarray(bf.tri)
         )

@@ -199,11 +199,10 @@ class TestGoldenAtriumBig:
         )
         assert dev.geometry.num_triangles > 100000
         assert not dev.geometry.prefix_layout  # binned-SAH layout
-        # the wavefront kernels' exactness on SAH layouts is covered in
-        # interpret mode by tests/test_wavefront.py; at 1861 clusters
-        # the interpreter is too slow for CI, so the golden render runs
-        # the exact brute-force reference (the TPU bench runs the
-        # wavefront on this asset for real)
+        # the intersect kernel's exactness on SAH layouts is covered in
+        # interpret mode on smaller scenes (tests/test_pallas.py,
+        # test_cluster.py); at 238k slots the interpreter is too slow
+        # for CI, so the golden render runs the brute-force reference
         settings = RenderSettings(
             width=24, height=24, max_depth=2, rr_depth=2,
             tile_size=576, intersector="bruteforce",

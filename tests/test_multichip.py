@@ -26,7 +26,7 @@ def test_sharded_matches_single(cornell_device_scene):
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=3, rr_depth=2,
-        tile_size=size * size // 8, use_bvh=True,
+        tile_size=size * size // 8,
     )
     uniforms = Uniforms.default()
 
@@ -99,7 +99,7 @@ def test_sharded_with_envmap(cornell_device_scene):
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=3, rr_depth=2,
-        tile_size=size * size // 8, use_bvh=True, env_type=ENV_MAP,
+        tile_size=size * size // 8, env_type=ENV_MAP,
     )
     _assert_identical(*_run_pair(cornell_device_scene, settings, env=env))
 
@@ -126,47 +126,50 @@ def test_sharded_with_textures():
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=2, rr_depth=2,
-        tile_size=size * size // 8, use_bvh=True,
+        tile_size=size * size // 8,
     )
     _assert_identical(*_run_pair(dev, settings))
 
 
-def test_sharded_cluster_intersector_with_sort(cornell_device_scene):
-    """The cluster-streaming Pallas kernel (interpret mode) behind the
-    wavefront coherence sort: the sort permutes rays WITHIN a shard, so
-    bit-identity proves the permutation round-trips exactly."""
+def test_sharded_pallas_intersector(cornell_device_scene):
+    """The Pallas intersect kernel (interpret mode) inside each shard:
+    per-ray hits are a pure function of (ray, winning triangle), so the
+    film must not depend on the device count."""
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=2, rr_depth=2,
-        tile_size=size * size // 8, intersector="cluster",
-        sort_rays=True, interpret_pallas=True,
+        tile_size=size * size // 8, intersector="pallas",
+        interpret_pallas=True,
     )
     _assert_identical(*_run_pair(cornell_device_scene, settings, frames=1))
 
 
-def test_sharded_matrix_intersector(cornell_device_scene):
-    """The VMEM matrix-traversal kernel (interpret mode) with the fused
-    lax.sort coherence ordering inside each shard."""
-    size = 32
-    settings = RenderSettings(
-        width=size, height=size, max_depth=2, rr_depth=2,
-        tile_size=size * size // 8, intersector="matrix",
-        sort_rays=True, interpret_pallas=True,
+def test_sharded_pallas_intersector_sah_scene():
+    """The kernel on a multi-cluster binned-SAH scene (real triangles
+    scattered past num_triangles, so every slot is scanned)."""
+    from hala_tpu.scene.loader.uploader import SceneUploader
+    from hala_tpu.scene.procedural import sponza_like
+
+    dev = SceneUploader.upload(
+        sponza_like(rooms=(2, 2), columns_per_room=3, boxes_per_room=2),
+        use_ray_tracing=False,
     )
-    _assert_identical(*_run_pair(cornell_device_scene, settings, frames=1))
-
-
-def test_sharded_matrix_worklist_batched(cornell_device_scene):
-    """The worklist visit engine with batched (2-cluster) visits
-    (interpret mode): visit order and the per-visit pair order match
-    the branch engine by construction (cluster-major nibble entries),
-    so per-ray bits must be independent of the device count."""
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=2, rr_depth=2,
-        tile_size=size * size // 8, intersector="matrix",
-        sort_rays=True, interpret_pallas=True,
-        matrix_worklist=True, matrix_visit_batch=2,
+        tile_size=size * size // 8, intersector="pallas",
+        interpret_pallas=True,
+    )
+    _assert_identical(*_run_pair(dev, settings, frames=1))
+
+
+def test_sharded_pallas_intersector_spp(cornell_device_scene):
+    """The kernel with sample-adjacent spp batching under tiling."""
+    size = 32
+    settings = RenderSettings(
+        width=size, height=size, max_depth=2, rr_depth=2,
+        tile_size=size * size // 4, intersector="pallas",
+        interpret_pallas=True, spp=2,
     )
     _assert_identical(*_run_pair(cornell_device_scene, settings, frames=1))
 
@@ -184,44 +187,42 @@ def test_sharded_spp_batch(cornell_device_scene):
     _assert_identical(*_run_pair(cornell_device_scene, settings, frames=1))
 
 
-def test_sharded_grouped_intersector(cornell_device_scene):
-    """The grouped MXU traversal (interpret mode): 128-ray groups are
-    formed per shard AFTER the in-shard sort, so bit-identity proves
-    per-ray results are independent of group membership (tested chunks
-    are a superset of each ray's slab hits; extra chunks cannot add
-    hits)."""
+def test_sharded_pallas_intersector_envmap(cornell_device_scene):
+    """The kernel under tiling with env NEE (a second any-hit batch per
+    bounce)."""
+    from hala_tpu.envmap import EnvMap
+    from hala_tpu.models.integrator import ENV_MAP
+
+    rs = np.random.RandomState(3)
+    env = EnvMap.from_array(
+        rs.uniform(0.05, 1.5, (16, 32, 3)).astype(np.float32)
+    )
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=2, rr_depth=2,
-        tile_size=size * size // 8, intersector="grouped",
-        sort_rays=True, interpret_pallas=True,
+        tile_size=size * size // 8, intersector="pallas",
+        interpret_pallas=True, env_type=ENV_MAP,
     )
-    _assert_identical(*_run_pair(cornell_device_scene, settings, frames=1))
+    _assert_identical(
+        *_run_pair(cornell_device_scene, settings, env=env, frames=1)
+    )
 
 
-def test_sharded_wavefront_intersector_truncated():
-    """The rank-iteration wavefront (interpret mode) on a multi-cluster
-    scene with tiny caps, so per-ray cull overflow AND group M-cap
-    truncation both fire: group composition (and therefore which engine
-    resolves a ray — wavefront kernel vs matrix fallback) depends on
-    the per-shard batch, and bit-identity holds because winning hits
-    are re-evaluated with the canonical Moller-Trumbore
-    (ops/intersect.canonical_hit, round-2 advisor finding on the
-    grouped fallback merge)."""
+def test_sharded_pallas_intersector_alpha():
+    """The kernel under tiling on a scene with alpha materials (shadow
+    rays ride the closest-hit batch through `transmit`)."""
     from hala_tpu.scene.loader.uploader import SceneUploader
-    from hala_tpu.scene.procedural import sponza_like
+    from conftest import make_glass_scene
 
     dev = SceneUploader.upload(
-        sponza_like(rooms=(3, 3), columns_per_room=3, boxes_per_room=6),
-        use_ray_tracing=False,
+        make_glass_scene(front_a=0.5), use_ray_tracing=False
     )
-    assert dev.geometry.tri_packed.shape[0] > 8
+    assert dev.materials.has_alpha
     size = 32
     settings = RenderSettings(
         width=size, height=size, max_depth=2, rr_depth=2,
-        tile_size=size * size // 8, intersector="wavefront",
-        sort_rays=True, interpret_pallas=True,
-        wavefront_k=3, wavefront_m=8,
+        tile_size=size * size // 8, intersector="pallas",
+        interpret_pallas=True,
     )
     _assert_identical(*_run_pair(dev, settings, frames=1))
 
@@ -231,7 +232,7 @@ def test_sharded_uneven_aspect(cornell_device_scene):
     per-shard row offsets + camera NDC must agree with single-chip."""
     settings = RenderSettings(
         width=40, height=48, max_depth=2, rr_depth=2,
-        tile_size=240, use_bvh=True,
+        tile_size=240,
     )
     _assert_identical(
         *_run_pair(cornell_device_scene, settings, width=40, height=48)

@@ -10,9 +10,8 @@
    cosine factors, radiance conventions — a class of bias the
    self-generated goldens can never catch).
 
-2. The cross-backend 256^2 TPU-vs-CPU check lives in
-   tools/oracle_check.py (opt-in; needs the real TPU): policy
-   documented in BASELINE.md.
+2. The cross-backend 256^2 GPU-vs-CPU check runs in chip_smoke.py
+   (needs a GPU): policy documented in BASELINE.md.
 
 Reference role: the PFM AOV comparison hook,
 /root/reference/src/rt_renderer.rs:1224-1352.

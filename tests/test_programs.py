@@ -427,7 +427,7 @@ class TestKernelHookDispatch:
 
         settings = RenderSettings(
             width=size, height=size, max_depth=2, rr_depth=2,
-            tile_size=size * size, use_bvh=True,
+            tile_size=size * size,
         )
         film = Film.create(size, size)
         film, _ = render_frame(
@@ -601,7 +601,7 @@ class TestHitGroupHooks:
 
         settings = RenderSettings(
             width=size, height=size, max_depth=2, rr_depth=2,
-            tile_size=size * size, use_bvh=True,
+            tile_size=size * size,
         )
         film = Film.create(size, size)
         film, _ = render_frame(

@@ -253,9 +253,9 @@ class TestExactSegmented:
         assert float(over3) == 1.0
 
     def test_routed_by_default_for_large_meshes(self):
-        """rasterize_tiled auto-routes >4096-tri meshes to the exact
-        kernel (scatter=None), so the renderer's binned path gets the
-        uncapped contract without opting in."""
+        """rasterize_tiled routes >4096-tri meshes to an exact path
+        (scatter=None; the full scan on this CPU), so the renderer's
+        binned path gets the uncapped contract without opting in."""
         from hala_tpu.ops.raster import rasterize_tiled
 
         t = 5000
@@ -265,6 +265,107 @@ class TestExactSegmented:
         assert float(over) == 0.0
         np.testing.assert_array_equal(np.asarray(ref.tri),
                                       np.asarray(frag.tri))
+
+    @pytest.mark.parametrize(
+        "platform,tris,tile,route",
+        [
+            ("gpu", 5000, 64, "exact"),
+            ("gpu", 5000, 48, "scan"),     # not a power of two
+            ("gpu", 4096, 64, "overlap"),
+            ("cpu", 5000, 64, "scan"),
+            ("cpu", 36, 64, "overlap"),
+        ],
+    )
+    def test_route_per_platform(self, platform, tris, tile, route):
+        from hala_tpu.ops.raster import raster_route
+
+        assert raster_route(platform, tris, tile) == route
+
+    def test_route_rejects_other_platforms(self):
+        from hala_tpu.ops.raster import raster_route
+
+        with pytest.raises(ValueError):
+            raster_route("rocm", 5000, 64)
+
+    @pytest.mark.parametrize("tile", [8, 16, 32])
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_exact_tile_sizes(self, tile, seed):
+        """The kernel's pixel split and candidate blocks at several tile
+        sizes (a tile smaller than one program's pixel block included)
+        against the full scan, bit for bit."""
+        from hala_tpu.ops.raster_kernel import rasterize_tiled_exact
+
+        t = 300
+        args = self._mesh(20 + seed, t, extent=96.0)
+        ref = self._ref(args, 96, 80, t)
+        frag, over = rasterize_tiled_exact(
+            *args, 96, 80, tile=tile, interpret=True
+        )
+        assert float(over) == 0.0
+        for f in ("tri", "depth", "u", "v"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(ref, f)), np.asarray(getattr(frag, f))
+            )
+
+    @pytest.mark.parametrize(
+        "pixels_per_program,cand_block", [(64, 4), (128, 16), (256, 32)]
+    )
+    def test_exact_block_shapes(self, pixels_per_program, cand_block):
+        from hala_tpu.ops.raster_kernel import rasterize_tiled_exact
+
+        t = 400
+        args = self._mesh(31, t, huge_frac=0.05, extent=128.0)
+        ref = self._ref(args, 128, 128, t)
+        frag, _ = rasterize_tiled_exact(
+            *args, 128, 128, tile=32, interpret=True,
+            pixels_per_program=pixels_per_program, cand_block=cand_block,
+        )
+        np.testing.assert_array_equal(np.asarray(ref.tri),
+                                      np.asarray(frag.tri))
+        np.testing.assert_array_equal(np.asarray(ref.depth),
+                                      np.asarray(frag.depth))
+
+    def test_exact_empty_tiles(self):
+        """Triangles in one corner: most tiles have empty segments and
+        must stay background."""
+        import jax.numpy as jnp
+
+        from hala_tpu.ops.raster_kernel import rasterize_tiled_exact
+
+        rs = np.random.RandomState(9)
+        t = 64
+        tri = (
+            rs.uniform(2, 10, (t, 1, 2)) + rs.uniform(-2, 2, (t, 3, 2))
+        ).astype(np.float32)
+        args = (
+            jnp.asarray(tri),
+            jnp.asarray(rs.uniform(0.1, 0.9, (t, 3)).astype(np.float32)),
+            jnp.asarray(rs.uniform(0.5, 2.0, (t, 3)).astype(np.float32)),
+            jnp.ones((t,), dtype=bool),
+        )
+        ref = self._ref(args, 64, 64, t)
+        frag, _ = rasterize_tiled_exact(
+            *args, 64, 64, tile=16, interpret=True
+        )
+        np.testing.assert_array_equal(np.asarray(ref.tri),
+                                      np.asarray(frag.tri))
+        assert (np.asarray(frag.tri).reshape(64, 64)[32:, 32:] == -1).all()
+
+    def test_exact_bin_segments(self):
+        """bin_candidates: segments are id-ordered within a tile and
+        hold every triangle whose screen box overlaps the tile."""
+        from hala_tpu.ops.raster_kernel import bin_candidates
+
+        t = 200
+        args = self._mesh(4, t, extent=64.0)
+        starts, data, over = bin_candidates(*args, 64, 64, tile=16)
+        starts = np.asarray(starts)
+        ids = np.asarray(data[14]).astype(np.int64)
+        assert float(over) == 0.0
+        assert starts[0] == 0 and (np.diff(starts) >= 0).all()
+        for k in range(len(starts) - 1):
+            seg = ids[starts[k]:starts[k + 1]]
+            assert (np.diff(seg) > 0).all()
 
 
 class TestTileBinned:
@@ -488,7 +589,7 @@ class TestRasterKernelHooks:
 
 
 class TestTransparency:
-    """Depth-peeled forward transparency (the TPU-native form of the
+    """Depth-peeled forward transparency (the JAX form of the
     reference's SRC_ALPHA/ONE_MINUS_SRC_ALPHA forward blending,
     rz_renderer.rs:490): composite must satisfy the exact over-operator
     algebra layer by layer."""

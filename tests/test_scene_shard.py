@@ -146,12 +146,12 @@ def test_scene_sharded_multicluster():
     assert float(np.asarray(gathered.accum).mean()) > 0.01
 
 
-def test_scene_sharded_matrix_engine():
-    """VERDICT r4 item 9: the TP merge composed with the MATRIX kernel
-    (the engine that actually runs at scale) in interpret mode — not
-    just the CPU brute-force fallback — must still reproduce the
-    single-device bits. Exercises the sharded _intersect's canonical
-    (t, tri) merge over per-shard matrix traversals."""
+def test_scene_sharded_pallas_engine():
+    """The TP merge composed with the Pallas intersect kernel (the
+    engine "auto" picks on a GPU) in interpret mode — not just the CPU
+    brute force — must still reproduce the single-device bits.
+    Exercises the sharded _intersect's (t, tri) merge over per-shard
+    kernel queries that scan every local slot."""
     from hala_tpu.scene.loader.uploader import SceneUploader
     from hala_tpu.scene.procedural import sponza_like
 
@@ -163,7 +163,7 @@ def test_scene_sharded_matrix_engine():
     settings = RenderSettings(
         width=size, height=size, max_depth=2, rr_depth=2,
         tile_size=size * size,
-        intersector="matrix", interpret_pallas=True,
+        intersector="pallas", interpret_pallas=True,
     )
     film, gathered, rays_s, rays_m = _run_sharded_pair(
         scene, settings, frames=1

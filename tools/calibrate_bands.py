@@ -1,8 +1,9 @@
-"""Calibrate bench.py ACCUM_MEAN_BANDS on CPU.
+"""Calibrate bench.py ACCUM_MEAN_BANDS on the CPU.
 
 Renders each BASELINE config's scene/camera at a reduced film (the
 accumulated MEAN is resolution-invariant up to sampling detail) and
-prints the measured means; bands in bench.py are these +-40%.
+prints the means; bands in bench.py are these +-40%. Compare them with
+the means the bench prints on the GPU ("[bench] <config>: accum mean").
 
   python -u tools/calibrate_bands.py
 """
@@ -97,7 +98,7 @@ def run():
     scene = SceneUploader.upload(Scene.load(path), use_ray_tracing=False)
     sp = RenderSettings(
         width=192, height=96, max_depth=4, rr_depth=2, tile_size=16384,
-        intersector="auto", sort_rays=True,
+        intersector="auto",
     )
     m, _ = mean_of(scene, None, sp, 2)
     stamp("sponza", m)
